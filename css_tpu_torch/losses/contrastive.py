@@ -1,0 +1,141 @@
+"""Pixel-prototype contrastive loss, ``sampled_pallas`` negative mode,
+counterpart of ``css_tpu/losses/contrastive.py``.
+
+Per class c, with prototypes updated by the EMA of the class means:
+  * anchors: Q hard pixels of c (prob_c below the strong threshold), drawn
+    uniformly with replacement through a per-class random order;
+  * negatives: the multiset sum over pixels n of m_n exp(<a, r_n> / temp),
+    with thinned multiplicities m drawn around lam_n = G p(class(n)) /
+    count(class(n)) and p the softmax of prototype similarity over the other
+    locally valid classes; the sum runs through the InfoNCE kernels;
+  * InfoNCE with the own prototype as the positive.
+All C classes run every step; classes without a hard anchor or without
+pixels contribute 0.  The loss is the sum over classes divided by the number
+of locally valid classes, or 0 when fewer than two are valid.
+
+The random inputs arrive as tensors (``ContrastDraws`` in train/draws.py):
+24-bit tie-break keys ``tie`` [N], anchor uniforms ``u1`` [C, Q], and the
+uniforms of the thinned multiplicities ``u`` [C, N].
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from css_tpu_torch.ops.kernels.contrastive_kernels import weighted_exp_softsum_stochastic
+
+__all__ = ["prototype_contrastive_loss", "update_prototypes", "grouped_random_order"]
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x * torch.rsqrt(torch.clamp_min(torch.sum(x * x, dim=-1, keepdim=True), eps))
+
+
+def _class_onehot(cls_id, member, num_classes):
+    """[N, C] f32 one-hot of the member pixels' classes (non-members all 0)."""
+    masked = torch.where(member, cls_id, torch.full_like(cls_id, num_classes))
+    return F.one_hot(masked.long(), num_classes + 1)[:, :num_classes].float()
+
+
+def grouped_random_order(cls_id: torch.Tensor, member: torch.Tensor, tie: torch.Tensor,
+                         num_classes: int):
+    """Random per-class ordering of pixel ids: ``(order [N], counts [C],
+    offsets [C])`` with ``order[offsets[c] : offsets[c] + counts[c]]`` a
+    random permutation of the member pixels of class c.
+
+    Sorts one packed int32 key (class << 24 | 24-bit ``tie``) stably, as
+    ``lax.sort`` does, so equal keys keep pixel order.
+    """
+    if num_classes >= 128:
+        raise ValueError(
+            f"num_classes={num_classes} exceeds the packed-key capacity "
+            "(< 128 classes); widen _grouped_random_order's packing first")
+    key = torch.where(member, cls_id, torch.full_like(cls_id, num_classes)).int()
+    packed = (key << 24) | tie.int()
+    _, order = torch.sort(packed, stable=True)
+    counts = torch.bincount(key.long(), minlength=num_classes + 1)[:num_classes]
+    offsets = torch.cumsum(counts, 0) - counts
+    return order, counts, offsets
+
+
+def update_prototypes(rep: torch.Tensor, cls_id: torch.Tensor, member: torch.Tensor,
+                      prototypes: torch.Tensor, alpha: float):
+    """EMA of the per-class means; a class seen for the first time (stored
+    prototype exactly zero) takes the mean.  Returns (new [C, D], counts [C])."""
+    onehot = _class_onehot(cls_id, member, prototypes.shape[0])
+    sums = onehot.T @ rep.detach().float()
+    counts = onehot.sum(0)
+    mean = sums / torch.clamp_min(counts[:, None], 1.0)
+    never_seen = torch.sum(prototypes, dim=1, keepdim=True) == 0.0
+    ema = torch.where(never_seen, mean, alpha * prototypes + (1 - alpha) * mean)
+    return torch.where(counts[:, None] > 0, ema, prototypes), counts
+
+
+def prototype_contrastive_loss(
+    rep: torch.Tensor,           # [B, h, w, D] with gradients
+    label_onehot: torch.Tensor,  # [B, h, w, C] f32 one-hot (all-zero = ignore)
+    mask: torch.Tensor,          # [B, h, w] validity
+    prob: torch.Tensor,          # [B, h, w, C] drives hard-anchor mining
+    prototypes: torch.Tensor,    # [C, D]
+    tie: torch.Tensor,           # [N] int, 24 random bits
+    u1: torch.Tensor,            # [C, Q] anchor uniforms
+    u: torch.Tensor,             # [C, N] thinning uniforms
+    *,
+    num_negatives: int = 512,
+    temp: float = 0.5,
+    strong_threshold: float = 0.97,
+    alpha: float = 0.99,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(loss, new_prototypes)``; Q is ``u1.shape[1]``."""
+    b, h, w, d = rep.shape
+    num_classes = label_onehot.shape[-1]
+    n = b * h * w
+
+    rep_flat = rep.reshape(n, d).float()
+    rep_ng = rep_flat.detach()
+    onehot_flat = label_onehot.reshape(n, num_classes)
+    cls_id = torch.argmax(onehot_flat, dim=-1)
+    member = (onehot_flat.amax(dim=-1) > 0) & (mask.reshape(n) > 0)
+
+    new_protos, _ = update_prototypes(rep_ng, cls_id, member, prototypes, alpha)
+    protos_n = _l2_normalize(new_protos)
+
+    prob_at_cls = torch.sum(onehot_flat * prob.reshape(n, num_classes).detach(), dim=-1)
+    hard = member & (prob_at_cls < strong_threshold)
+    order_hard, counts_hard, off_hard = grouped_random_order(cls_id, hard, tie, num_classes)
+
+    counts_all = _class_onehot(cls_id, member, num_classes).sum(0)
+    rep_table = _l2_normalize(rep_ng).to(torch.bfloat16)     # [N, D] no grad
+    local_valid = counts_all > 0
+    valid_num = local_valid.sum()
+
+    # anchors: uniform with replacement from each class's hard pool
+    k1 = torch.floor(u1 * torch.clamp_min(counts_hard, 1)[:, None].float()).long()
+    anchors = rep_flat[order_hard[off_hard[:, None] + k1]]  # [C, Q, D] (grad)
+
+    # negative class law: softmax(proto sim / temp) over the other valid classes
+    eye = torch.eye(num_classes, dtype=torch.bool, device=rep.device)
+    allowed = ~eye & local_valid[None, :]
+    neg_logits = torch.where(allowed, (protos_n @ protos_n.T) / temp,
+                             torch.full_like(protos_n[:, :1], -torch.inf))
+    p = torch.softmax(neg_logits, dim=-1)
+    p = torch.where(torch.isfinite(p), p, torch.zeros_like(p))
+    contribute = local_valid & (counts_hard > 0)
+
+    # per-pixel weight of class c's negatives: p_c[class(n)] / count(class(n))
+    masked_cls = torch.where(member, cls_id, torch.full_like(cls_id, num_classes))
+    p_over_cnt = F.pad(p / torch.clamp_min(counts_all, 1.0)[None, :], (0, 1))  # [C, C+1]
+
+    total = rep_flat.new_zeros(())
+    for c in range(num_classes):
+        a = _l2_normalize(anchors[c])
+        pos = (a @ protos_n[c]) / temp                        # [Q]
+        lam = num_negatives * p_over_cnt[c][masked_cls]      # [N]
+        neg_sum = weighted_exp_softsum_stochastic(a, rep_table, lam, 1.0 / temp, u[c])
+        loss_c = torch.mean(torch.log(torch.exp(pos) + neg_sum) - pos)
+        total = total + torch.where(contribute[c], loss_c, torch.zeros_like(loss_c))
+    loss = torch.where(valid_num > 1, total / torch.clamp_min(valid_num, 1), torch.zeros_like(total))
+    return loss, new_protos

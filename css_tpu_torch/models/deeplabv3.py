@@ -1,0 +1,85 @@
+"""DeepLabV3+ with the dual classifier/representation head, counterpart of
+``css_tpu/models/deeplabv3.py``.
+
+``DeepLabV3PlusDual`` takes NHWC images and returns NHWC
+``(prediction [B, h/4, w/4, C], representation [B, h/4, w/4, D])`` in f32,
+as the JAX model does.  Inside it runs NCHW: the NHWC input permuted to NCHW
+is a channels-last tensor, which is cuDNN's fast layout, so the boundary
+costs no copy.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from css_tpu_torch.models.aspp import ASPP
+from css_tpu_torch.models.resnet import ConvBN, ResNetBackbone, resnet101, resnet_tiny
+
+__all__ = ["DeepLabV3PlusDual", "build_model"]
+
+
+class _Head(nn.Module):
+    """Conv3x3(304->256, no bias) + BN + ReLU + Conv1x1(256->out, bias)."""
+
+    def __init__(self, in_ch: int, out_features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = ConvBN(in_ch, 256, 3, dtype=dtype)
+        self.out = nn.Module()
+        self.out.weight = nn.Parameter(torch.empty(out_features, 256, 1, 1))
+        self.out.bias = nn.Parameter(torch.empty(out_features))
+        # torch nn.Conv2d's default init
+        nn.init.kaiming_uniform_(self.out.weight, a=math.sqrt(5))
+        bound = 1.0 / math.sqrt(256)
+        nn.init.uniform_(self.out.bias, -bound, bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        return F.conv2d(x, self.out.weight.to(self.dtype), self.out.bias.to(self.dtype))
+
+
+class DeepLabV3PlusDual(nn.Module):
+    def __init__(self, backbone: ResNetBackbone, num_classes: int = 21,
+                 output_dim: int = 256, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if backbone.output_stride != 8:
+            raise ValueError("the port's DeepLabV3+ head has the OS8 rates (12, 24, 36)")
+        self.dtype = dtype
+        self.backbone = backbone
+        self.aspp = ASPP(backbone.out_channels, (12, 24, 36), dtype=dtype)
+        self.project = ConvBN(backbone.low_channels, 48, 1, dtype=dtype)
+        self.classifier = _Head(48 + 256, num_classes, dtype)
+        self.representation = _Head(48 + 256, output_dim, dtype)
+
+    def forward(self, x: torch.Tensor):
+        """``x`` [B, H, W, 3] -> (pred, rep), NHWC f32 at H/4 x W/4."""
+        low, feat = self.backbone(x.permute(0, 3, 1, 2))
+        feat = self.aspp(feat)
+        low = self.project(low)
+        feat = F.interpolate(feat.float(), size=low.shape[2:], mode="bilinear",
+                             align_corners=True).to(low.dtype)
+        dec = torch.cat([low, feat], dim=1)
+        pred = self.classifier(dec)
+        rep = self.representation(dec)
+        return (pred.float().permute(0, 2, 3, 1),
+                rep.float().permute(0, 2, 3, 1))
+
+
+def build_model(num_classes: int, output_dim: int = 256, backbone: str = "resnet101",
+                output_stride: int = 8, dtype: torch.dtype = torch.float32,
+                seed: int = 0) -> DeepLabV3PlusDual:
+    """The student/teacher network, randomly initialized from ``seed``
+    (on the CPU; move it with ``.to(device)``)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        if backbone == "resnet101":
+            trunk = resnet101(output_stride, dtype=dtype)
+        elif backbone == "tiny":
+            trunk = resnet_tiny(output_stride, dtype=dtype)
+        else:
+            raise ValueError(f"unknown backbone {backbone}")
+        return DeepLabV3PlusDual(trunk, num_classes, output_dim, dtype)

@@ -1,0 +1,174 @@
+"""The semi-supervised train step, strategy ``ori`` on one device,
+counterpart of ``css_tpu/train/train_step.py::make_train_step``.
+
+Dataflow, in the reference's module-call order:
+
+  augment the labeled batch -> base-crop the unlabeled batch -> teacher
+  forward (train mode, no grad) -> pseudo-labels and confidences -> scale /
+  crop, CutMix, photometric + flip of the unlabeled batch -> student forward
+  on labeled, then on unlabeled -> CE + attention-threshold + prototype
+  contrastive losses -> backward -> SGD (nesterov, poly LR) -> teacher EMA.
+
+Mixed precision mirrors the JAX casts explicitly (no autocast): the model
+casts conv weights and activations to its ``dtype``; BatchNorm statistics,
+model outputs and losses are f32.  Every random draw arrives in ``draws``
+(``train/draws.py``).  The step updates ``state`` in place and returns it
+with the step's losses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from css_tpu_torch.losses.contrastive import prototype_contrastive_loss
+from css_tpu_torch.losses.cross_entropy import cross_entropy
+from css_tpu_torch.losses.threshold import attention_threshold_loss
+from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet,
+                                       to_channel_first, to_channel_last)
+from css_tpu_torch.ops.interpolate import bilinear_resize, nearest_resize
+from css_tpu_torch.ops.mixing import mix_batch
+from css_tpu_torch.ops.onehot import label_onehot
+from css_tpu_torch.train.draws import StepDraws
+from css_tpu_torch.train.state import TrainState, ema_update
+
+__all__ = ["StepConfig", "make_train_step", "rep_hw"]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """Hyper-parameters of the train step (the JAX ``StepConfig`` fields the
+    ported path reads; the others wait for their slices)."""
+
+    num_classes: int
+    crop_hw: Tuple[int, int]
+    scale_range: Tuple[float, float]
+    strategy: str = "ori"
+    mix_mode: str = "cutmix"
+    un_threshold: float = 0.97
+    weak_threshold: float = 0.7
+    strong_threshold: float = 0.97
+    temp: float = 0.5
+    num_queries: int = 256
+    num_negatives: int = 512
+    proto_alpha: float = 0.99
+    ema_alpha: float = 0.99
+    negative_mode: str = "sampled_pallas"
+
+
+def rep_hw(crop_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """Spatial size of the model outputs: the stride-2 7x7 stem conv, then
+    the stride-2 3x3 max pool."""
+    def one(x):
+        x = (x + 6 - 7) // 2 + 1
+        return (x + 2 - 3) // 2 + 1
+    return one(crop_hw[0]), one(crop_hw[1])
+
+
+def _remap_ignore(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """255 (and any out-of-range label) -> -1."""
+    return torch.where((labels >= 0) & (labels < num_classes), labels,
+                       torch.full_like(labels, -1))
+
+
+def _to01_cf(images: torch.Tensor) -> torch.Tensor:
+    """NHWC uint8/float canvas -> channel-first float [0, 1]."""
+    if images.dtype == torch.uint8:
+        images = images.float() / 255.0
+    return to_channel_first(images)
+
+
+def make_train_step(cfg: StepConfig):
+    """Build ``step(state, batch, draws, contrast_weight) -> (state, metrics)``.
+
+    ``batch`` keys: ``l_image`` [B, H, W, 3] float [0, 1] (or uint8),
+    ``l_label`` [B, H, W] int (255 = ignore), ``l_valid_hw`` [B, 2],
+    ``u_image`` [B, Hu, Wu, 3], ``u_valid_hw`` [B, 2].
+    """
+    unsupported = {
+        "strategy": (cfg.strategy, "ori"),
+        "mix_mode": (cfg.mix_mode, "cutmix"),
+        "negative_mode": (cfg.negative_mode, "sampled_pallas"),
+    }
+    for name, (got, want) in unsupported.items():
+        if got != want:
+            raise NotImplementedError(f"{name}={got!r} is not ported yet (the port has {want!r})")
+    ch, cw = cfg.crop_hw
+    c = cfg.num_classes
+
+    def pseudo_label_phase(state: TrainState, u_img01: torch.Tensor, draws: StepDraws):
+        """No-grad teacher + the unlabeled augmentation chain; returns the
+        normalized NHWC unlabeled batch, its labels and confidences."""
+        state.teacher.train()
+        pred_u_t, _ = state.teacher(to_channel_last(normalize_imagenet(u_img01)))
+        probs = torch.softmax(bilinear_resize(pred_u_t, (ch, cw), align_corners=True), dim=-1)
+        labels = torch.argmax(probs, dim=-1)[:, None]           # [B, 1, H, W]
+        confs = torch.amax(probs, dim=-1)[:, None]
+        full_hw = torch.tensor([ch, cw], device=u_img01.device).expand(u_img01.shape[0], 2)
+        img01, labels, confs = batch_transform(u_img01, labels, confs, full_hw, (ch, cw),
+                                               **draws.t_crop.as_kwargs())
+        img01, labels, confs = mix_batch(img01, labels, confs, **draws.mix.as_kwargs())
+        img01, labels, confs = batch_transform(img01, labels, confs, full_hw, (ch, cw),
+                                               **draws.u_aug.as_kwargs())
+        return to_channel_last(normalize_imagenet(img01)), labels, confs
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: StepDraws,
+             contrast_weight) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model = state.model
+        with torch.no_grad():
+            l_canvas = _to01_cf(batch["l_image"])
+            bl, _, lh, lw = l_canvas.shape
+            l_labels0 = _remap_ignore(batch["l_label"], c)[:, None]
+            l_img01, l_labels, _ = batch_transform(
+                l_canvas, l_labels0, l_canvas.new_zeros((bl, 1, lh, lw)),
+                batch["l_valid_hw"], (ch, cw), **draws.l_aug.as_kwargs())
+            l_img = to_channel_last(normalize_imagenet(l_img01))
+            l_label = l_labels[:, 0]
+
+            u_canvas = _to01_cf(batch["u_image"])
+            bu, _, uh, uw = u_canvas.shape
+            u_img01, _, _ = batch_transform(
+                u_canvas, torch.zeros((bu, 1, uh, uw), dtype=torch.long, device=u_canvas.device),
+                u_canvas.new_zeros((bu, 1, uh, uw)), batch["u_valid_hw"], (ch, cw),
+                **draws.u_crop.as_kwargs())
+            u_img, u_labels, u_confs = pseudo_label_phase(state, u_img01, draws)
+        unsup_label = u_labels[:, 0]
+        conf_cls = u_confs[:, 0]
+
+        # two sequential student forwards: per-half BN statistics, labeled first
+        model.train()
+        pred_l, rep_l = model(l_img)
+        pred_u, rep_u = model(u_img)
+        pred_l_large = bilinear_resize(pred_l, (ch, cw), align_corners=True)
+        pred_u_large = bilinear_resize(pred_u, (ch, cw), align_corners=True)
+        sup = cross_entropy(pred_l_large, l_label)
+        unsup = attention_threshold_loss(pred_u_large, unsup_label, conf_cls, cfg.un_threshold)
+
+        hw = (pred_l.shape[1], pred_l.shape[2])
+        mask_l = nearest_resize((l_label >= 0).float(), hw)
+        mask_u = nearest_resize((conf_cls >= cfg.weak_threshold).float(), hw)
+        label_all = torch.cat([label_onehot(nearest_resize(l_label, hw), c),
+                               label_onehot(nearest_resize(unsup_label, hw), c)])
+        prob_all = torch.softmax(torch.cat([pred_l, pred_u]).detach(), dim=-1)
+        contrast, new_protos = prototype_contrastive_loss(
+            torch.cat([rep_l, rep_u]), label_all, torch.cat([mask_l, mask_u]),
+            prob_all, state.prototypes, **draws.contrast.as_kwargs(),
+            num_negatives=cfg.num_negatives, temp=cfg.temp,
+            strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha)
+        total = sup + unsup + contrast * contrast_weight
+
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.lr_schedule(state.step)
+        state.optimizer.step()
+        ema_update(state.teacher, model, state.step, cfg.ema_alpha)
+        state.prototypes = new_protos.detach()
+        state.step += 1
+        metrics = dict(total=total.detach(), sup=sup.detach(), unsup=unsup.detach(),
+                       contrast=contrast.detach())
+        return state, metrics
+
+    return step
