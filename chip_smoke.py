@@ -8,12 +8,14 @@ exit code, and no result line:
 
 1. header: the card (``nvidia-smi``), torch and CUDA versions, TF32 flags;
 2. build: every CUDA source of the port, one ``nvcc`` each, all at once;
-3. kernels: K1 and K2 at the main-path shapes (Q = 256 anchors, D = 256,
-   N = 262,144 table rows), held against their plain PyTorch versions on
-   the same inputs, once with a dead half of the weights and once with the
-   thinned multiplicities the main path feeds them; then timed beside the
-   plain versions, the ``torch.matmul`` yardstick and the least time the
-   card could take for the same work;
+3. kernels: the live-row compaction, K1 and K2 at the main-path shapes
+   (Q = 256 anchors, D = 256, N = 262,144 table rows), held against their
+   plain PyTorch versions on the same inputs under three weight patterns:
+   a dead half, the thinned multiplicities the main path feeds them (on the
+   labeled half), and thinned multiplicities scattered over the whole
+   table; then timed, with the L2 flushed before each call, beside the
+   plain versions, a library yardstick and the least time the card could
+   take for the same work;
 4. contrastive: the port's contrastive loss and its gradient at a small
    input on the card (through K1/K2) against the same call on the CPU
    (through the plain versions);
@@ -22,7 +24,8 @@ exit code, and no result line:
    ``sampled_pallas`` negatives, bf16 compute, random weights from a seed,
    synthetic data -- 2 warm-up steps, then ``--steps`` timed steps with the
    kernel launch counters zeroed just before and read just after: every
-   loss must be finite and each kernel must launch once per class per step.
+   loss must be finite, each kernel must launch once per class per step,
+   and the peak device memory must stay within PEAK_GIB_LIMIT.
 
 The output ends with one JSON line of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -44,6 +48,8 @@ NUM_NEGATIVES = 512
 K1_RTOL = 1e-3                  # same bf16 products, f32 sums in another order
 K2_RTOL = 1e-2                  # plus K2's bf16 exp: one bf16 step (2^-8) may flip
 K2_ATOL_FRACTION = 1e-2         # of max |M|
+PEAK_GIB_LIMIT = 33.213         # the step's peak before the live-row compaction
+                                # (33.113 GiB) + 0.1 GiB for the saved compactions
 
 
 def _smi() -> str:
@@ -52,35 +58,54 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+FLUSH_KERNEL = "bitwise_not"   # the L2 flush's kernel, left out of device times
 
 
-def _device_ms(torch, fn, iters: int) -> float:
-    """Device time per call: the summed durations of the kernels ``fn``
-    launches, from torch.profiler, without the host's gaps between them."""
+def _l2_flush(torch):
+    """A callable that sweeps a 256 MB buffer (five times the 50 MB L2)
+    through the cache, so that the next call finds its rows in device memory,
+    as each class's call does in the step."""
+    buf = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    return buf.bitwise_not_
+
+
+def _timed(torch, fn, iters: int, flush, device: bool = True) -> tuple:
+    """(ms, device_ms) per call of ``fn``, the L2 flushed before each call.
+    ms: the median over the calls of CUDA events around each call (the
+    median, since a stall of the shared host can hold one call's second
+    event back).  device_ms (None unless ``device``):
+    the summed durations of the call's kernels from torch.profiler, without
+    the host's gaps; one flush ahead of the calls warms the profiler up and
+    may go unseen, as the first event a profiler records can."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = statistics.median(start.elapsed_time(end) for start, end in events)
+    if not device:
+        return ms, None
     with profile(activities=[ProfilerActivity.CUDA]) as p:
+        flush()
+        torch.cuda.synchronize()
         for _ in range(iters):
+            flush()
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(e.time_range.elapsed_us() for e in p.events()
-                  if e.device_type == DeviceType.CUDA)
-    return busy_us / iters / 1e3
+    kernels = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    flushes = sum(FLUSH_KERNEL in e.name for e in kernels)
+    if flushes not in (iters, iters + 1):
+        raise RuntimeError(f"profiler saw {flushes} L2 flushes in {iters} calls")
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels if FLUSH_KERNEL not in e.name)
+    return ms, busy_us / iters / 1e3
 
 
 def _kernel_inputs(torch, ck, g, w_kind: str):
@@ -90,34 +115,52 @@ def _kernel_inputs(torch, ck, g, w_kind: str):
     if w_kind == "dead_half":
         w = torch.rand(N, device=dev, generator=g)
         w[N // 2:] = 0.0
-    else:   # thinned multiplicities around lam, sum(lam) = G, on the labeled half
+    else:   # thinned multiplicities around lam, sum(lam) = G, on the labeled half or all
         lam = torch.rand(N, device=dev, generator=g)
-        lam[N // 2:] = 0.0
+        if w_kind == "thinned":
+            lam[N // 2:] = 0.0
         lam *= NUM_NEGATIVES / lam.sum()
         w = ck.thinned_multiplicities(torch.rand(N, device=dev, generator=g), lam)
     return a.to(torch.bfloat16), r.to(torch.bfloat16), w
 
 
-def _bounds_ms(a, r, w, torch):
-    """Least time for K1 and K2 on these inputs: only rows with a nonzero
-    weight are needed, besides the weights themselves and the anchors."""
-    live = int(torch.count_nonzero(w))
+def _bounds_ms(a, w, live: int):
+    """Least time for each kernel on these inputs: K1 and K2 read the
+    anchors, all weights and the live rows; the compaction reads the weights
+    and writes an index and a weight per live row."""
     q, d = a.shape
     read = q * d * 2 + w.numel() * 4 + live * d * 2
+    work = {"k1": (read + q * 4, 2 * q * d * live),
+            "k2": (read + q * d * 4, 4 * q * d * live),
+            "compact": (w.numel() * 4 + live * 8 + 4, 0)}
     out = {}
-    for name, ops, written in (("k1", 2 * q * d * live, q * 4),
-                               ("k2", 4 * q * d * live, q * d * 4)):
-        t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    for name, (nbytes, ops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / BF16_FLOP_PER_S * 1e3
         out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-    return out, live
+    return out
+
+
+def _check_compaction(torch, ck, w):
+    idx, wv, n_live = ck.compact_live_rows_kernel(w)
+    idx_ref, wv_ref, n_ref = ck.compact_live_rows_plain(w)
+    live = int(n_live.item())
+    if (live != int(n_ref.item()) or not torch.equal(idx[:live], idx_ref[:live])
+            or not torch.equal(wv[:live], wv_ref[:live])):
+        raise RuntimeError(f"compaction differs from torch.nonzero: L={live} vs {int(n_ref.item())}")
+    return (idx, wv, n_live), live
 
 
 def kernel_phase(torch, ck):
+    """Each kernel against its plain version under three weight patterns,
+    then timed; the row kept for the JSON line is the ``thinned`` one, what
+    the main path feeds the kernels."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    results = {"k1": {"max_abs_err": 0.0}, "k2": {"max_abs_err": 0.0}}
-    for kind in ("dead_half", "thinned"):
+    flush = _l2_flush(torch)
+    results = {k: {"max_abs_err": 0.0} for k in ("k1", "k2", "compact")}
+    for kind in ("dead_half", "thinned", "scattered"):
         a, r, w = _kernel_inputs(torch, ck, g, kind)
+        comp, live = _check_compaction(torch, ck, w)
         s = ck.softsum_kernel(a, r, w, INV_TEMP)
         m = ck.softsum_moment_kernel(a, r, w, INV_TEMP)
         torch.cuda.synchronize()
@@ -126,25 +169,35 @@ def kernel_phase(torch, ck):
         torch.testing.assert_close(s, s_ref, rtol=K1_RTOL, atol=1e-6)
         m_scale = m_ref.abs().max().item()
         torch.testing.assert_close(m, m_ref, rtol=K2_RTOL, atol=K2_ATOL_FRACTION * m_scale)
-        errs = {"k1": (s - s_ref).abs().max().item(), "k2": (m - m_ref).abs().max().item()}
-        bounds, live = _bounds_ms(a, r, w, torch)
-        timing = {
+        errs = {"k1": (s - s_ref).abs().max().item(), "k2": (m - m_ref).abs().max().item(),
+                "compact": 0.0}   # checked equal above
+        bounds = _bounds_ms(a, w, live)
+        matmul_ms, _ = _timed(torch, lambda: torch.matmul(a, r.T), 10, flush, False)
+        timing = {   # (kernel wrapper, plain version, library call)
             "k1": (lambda: ck.softsum_kernel(a, r, w, INV_TEMP),
-                   lambda: ck.softsum_plain(a, r, w, INV_TEMP)),
+                   lambda: ck.softsum_plain(a, r, w, INV_TEMP), None),
             "k2": (lambda: ck.softsum_moment_kernel(a, r, w, INV_TEMP),
-                   lambda: ck.softsum_moment_plain(a, r, w, INV_TEMP)),
+                   lambda: ck.softsum_moment_plain(a, r, w, INV_TEMP), None),
+            "compact": (lambda: ck.compact_live_rows_kernel(w),
+                        lambda: ck.compact_live_rows_plain(w), lambda: torch.nonzero(w)),
         }
-        library_ms = _cuda_ms(lambda: torch.matmul(a, r.T), 10)
-        for name, (kern, plain) in timing.items():
-            row = dict(ms=_cuda_ms(kern, 20), plain_ms=_cuda_ms(plain, 5),
+        for name, (kern, plain, library) in timing.items():
+            ms, device_ms = _timed(torch, kern, 20, flush)
+            library_ms = _timed(torch, library, 10, flush, False)[0] if library else matmul_ms
+            row = dict(ms=ms, device_ms=device_ms,
+                       plain_ms=_timed(torch, plain, 5, flush, False)[0],
                        bound_ms=bounds[name][0], bound_by=bounds[name][1],
                        library_ms=library_ms, max_abs_err=errs[name])
-            print(f"kernel {name} w={kind} live_rows={live}: " + json.dumps(row)
-                  + f" device_ms={_device_ms(torch, kern, 20)}", flush=True)
+            print(f"kernel {name} w={kind} live_rows={live}: " + json.dumps(row), flush=True)
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], errs[name])
             if kind == "thinned":     # what the main path feeds the kernels
                 results[name].update({k: v for k, v in row.items() if k != "max_abs_err"})
-        del a, r, w, s, m, s_ref, m_ref
+        # K1 and K2 alone over a saved compaction, as the step's backward runs K2
+        for name, kern in (("k1", ck.softsum_live_kernel), ("k2", ck.softsum_moment_live_kernel)):
+            ms, device_ms = _timed(torch, lambda: kern(a, r, *comp, INV_TEMP), 20, flush)
+            print(f"kernel {name}_over_compaction w={kind} live_rows={live}: "
+                  + json.dumps(dict(ms=ms, device_ms=device_ms)), flush=True)
+        del a, r, w, s, m, s_ref, m_ref, comp
         torch.cuda.empty_cache()
     return results
 
@@ -238,6 +291,8 @@ def train_phase(torch, ck, steps: int, profile: bool):
             raise RuntimeError(f"{name}: {count} launches in {steps} steps, want {want}")
     dt = sum(times) / steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if peak_gib > PEAK_GIB_LIMIT:
+        raise RuntimeError(f"peak memory {peak_gib:.3f} GiB exceeds {PEAK_GIB_LIMIT} GiB")
     print(f"train: {dt * 1e3:.3f} ms/step (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}), {2 * bsz / dt:.3f} img/s, peak memory {peak_gib:.3f} GiB, "
           f"launches {json.dumps(launches)}", flush=True)
@@ -247,7 +302,8 @@ def train_phase(torch, ck, steps: int, profile: bool):
 
 
 _CATEGORIES = (   # first match wins, on the lower-cased kernel name
-    ("contrastive K1/K2", ("partial_kernel", "sum_partials")),
+    ("contrastive K1/K2 + compaction",
+     ("k1_live", "k2_live", "sum_partials", "count_live", "scatter_live")),
     ("convolution", ("conv", "wgrad", "dgrad", "xmma", "cudnn", "nhwc", "nchw")),
     ("matmul", ("gemm", "cutlass", "sm90")),
     ("elementwise", ("elementwise", "vectorized")),
@@ -338,6 +394,9 @@ def main() -> int:
         dict(name="weighted_exp_softsum_bwd", route="cuda", source=source,
              replaces=f"{tpu}:60", launches=launches["weighted_exp_softsum_bwd"],
              **kernels["k2"]),
+        dict(name="live_rows_compact", route="cuda", source=source,
+             replaces=f"{tpu}:155", launches=launches["live_rows_compact"],
+             **kernels["compact"]),
     ]}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

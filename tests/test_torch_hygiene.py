@@ -1,5 +1,6 @@
-"""The port stands alone: no file of css_tpu_torch/ or chip_smoke.py imports
-JAX or css_tpu, and the entry points run on the card unless asked for the CPU."""
+"""The port stands alone: no file of css_tpu_torch/, chip_smoke.py or
+kernel_ab.py imports JAX or css_tpu, and the entry points run on the card
+unless asked for the CPU."""
 
 import ast
 from pathlib import Path
@@ -22,7 +23,8 @@ def _imported_modules(path: Path):
 
 
 def _port_files():
-    return sorted((ROOT / "css_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "css_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                             ROOT / "kernel_ab.py"]
 
 
 def test_port_imports_neither_jax_nor_css_tpu():

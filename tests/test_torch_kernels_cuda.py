@@ -1,4 +1,5 @@
-"""The CUDA kernels K1/K2 against their plain PyTorch versions, on the card.
+"""The CUDA kernels (live-row compaction, K1, K2) against their plain
+PyTorch versions, on the card.
 
 Needs no JAX, so it also runs where only the port is installed:
 
@@ -8,7 +9,8 @@ Tolerances: the kernel and the plain version multiply the same bf16 values
 with f32 accumulation, in a different order, so ``s`` agrees to rtol 1e-3.
 K2 rounds ``exp`` to bf16 before its second product, and an order-of-sum
 difference can flip that rounding by one bf16 step (2^-8 relative) on single
-entries, so ``M`` is held to rtol 1e-2 with atol 1e-2 * max|M|.
+entries, so ``M`` is held to rtol 1e-2 with atol 1e-2 * max|M|.  The
+compaction is exact: same indices, same order, same count as torch.nonzero.
 """
 
 import pytest
@@ -86,7 +88,8 @@ def test_autograd_function_uses_both_kernels(cuda):
     a = a.float().requires_grad_(True)
     ck.reset_launches()
     torch.log(ck.weighted_exp_softsum(a, r, w, 2.0)).sum().backward()
-    assert ck.LAUNCHES == {"weighted_exp_softsum_fwd": 1, "weighted_exp_softsum_bwd": 1}
+    assert ck.LAUNCHES == {"live_rows_compact": 1, "weighted_exp_softsum_fwd": 1,
+                           "weighted_exp_softsum_bwd": 1}
 
     a_ref = a.detach().clone().requires_grad_(True)
     logits = (a_ref.to(torch.bfloat16).float() @ r.float().T) * 2.0
@@ -101,3 +104,74 @@ def test_cuda_wrapper_refuses_bad_operands(cuda):
         ck.softsum_kernel(a, r.float(), w, 2.0)
     with pytest.raises(ValueError):
         ck.softsum_kernel(a, r, w.cpu(), 2.0)
+
+
+def _live_weights(n, pattern, seed):
+    """Weights with a given set of live rows: ``single`` (one row), ``all``
+    (every row), ``run:<start>:<length>`` (a contiguous run) or ``scattered``
+    (thinned multiplicities over the whole table, sum(lam) = 512)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w = torch.zeros(n)
+    if pattern == "single":
+        w[n // 3] = 1.5
+    elif pattern == "all":
+        w = torch.rand(n, generator=g) + 0.1
+    elif pattern.startswith("run:"):
+        start, length = (int(x) for x in pattern.split(":")[1:])
+        w[start:start + length] = torch.rand(length, generator=g) + 0.1
+    else:
+        lam = torch.rand(n, generator=g) * (1024.0 / n)
+        w = ck.thinned_multiplicities(torch.rand(n, generator=g), lam)
+    return w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,d,n,pattern", [
+    (64, 256, 100_000, "single"),              # one live row
+    (128, 128, 5_000, "all"),                  # every row live
+    (256, 256, 20_000, "run:3000:6417"),       # 101 live tiles over 66 chunks (132 SMs):
+                                               # chunk boundaries inside the run, uneven split
+    (256, 256, 50_000, "run:777:129"),         # L one past a multiple of 64
+    (256, 256, 262_144, "scattered"),          # thinned over the whole table
+    (13, 48, 3_000, "scattered"),              # odd Q and D
+    (192, 256, 30_000, "scattered"),           # three anchor blocks: one idle warpgroup
+])
+def test_kernels_match_plain_live_patterns(cuda, q, d, n, pattern):
+    a, r, _ = _case(cuda, q, d, n, seed=q + d + n)
+    w = _live_weights(n, pattern, seed=n).to(cuda)
+    s = ck.softsum_kernel(a, r, w, 2.0)
+    m = ck.softsum_moment_kernel(a, r, w, 2.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, ck.softsum_plain(a, r, w, 2.0), rtol=1e-3, atol=1e-6)
+    _close_m(m, ck.softsum_moment_plain(a, r, w, 2.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,pattern", [
+    (262_144, "scattered"), (262_144, "run:131072:131072"), (5_000, "all"),
+    (100_000, "single"), (4_096, "run:0:0"), (2_049, "run:2040:9")])
+def test_compaction_matches_nonzero(cuda, n, pattern):
+    w = _live_weights(n, pattern, seed=n).to(cuda)
+    idx, wv, n_live = ck.compact_live_rows_kernel(w)
+    want = torch.nonzero(w).flatten()
+    count = int(n_live.item())
+    assert count == want.numel()
+    assert torch.equal(idx[:count].long(), want)
+    assert torch.equal(wv[:count], w[want])
+
+
+@pytest.mark.gpu
+def test_no_host_sync_on_the_path(cuda):
+    a, r, _ = _case(cuda, 256, 256, 50_000, seed=11)
+    w = _live_weights(50_000, "scattered", seed=11).to(cuda)
+    a = a.float().requires_grad_(True)
+    ck.weighted_exp_softsum(a, r, w, 2.0)   # build and bind the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = ck.weighted_exp_softsum(a, r, w, 2.0)
+        torch.log(s).sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(a.grad).all()
