@@ -25,7 +25,20 @@ exit code, and no result line:
    synthetic data -- 2 warm-up steps, then ``--steps`` timed steps with the
    kernel launch counters zeroed just before and read just after: every
    loss must be finite, each kernel must launch once per class per step,
-   and the peak device memory must stay within PEAK_GIB_LIMIT.
+   and the peak device memory must stay within PEAK_GIB_LIMIT;
+6. driver: with the train phase's state freed, the port's own entry point
+   (``css_tpu_torch.cli``, through its argument parser) runs twice on the
+   shipped VOC YAML with ``--synthetic``, in a temporary directory removed
+   at the end: run A ``--num_labels 32 --total_iter 4 --max_steps 4`` (4
+   steps, one eval over the 16 synthetic val images, checkpoints), then run
+   B ``--resume`` from A's ``last_model`` with ``--total_iter 8 --max_steps
+   6``.  The kernel launch counters are zeroed before A.  It fails unless
+   every loss is finite, each eval's confusion-matrix total equals the
+   count of valid label pixels in its crops, B starts at step 4 with the
+   prototypes A saved (bit-equal) and ends at step 6, and each kernel
+   launched 21 x 6 times.  It prints the driver's steps/s and ms/step
+   (beside the train phase's bare step), eval ms per image, checkpoint
+   seconds, the phase's peak memory, and the loader's ms per batch alone.
 
 The output ends with one JSON line of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -35,6 +48,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -301,6 +316,189 @@ def train_phase(torch, ck, steps: int, profile: bool):
     return launches
 
 
+class _DriverProbe:
+    """Wraps the driver's step, eval and checkpoint functions (module
+    attributes of ``css_tpu_torch.cli.train_main``) to observe one run:
+    each step's losses and device end time, the state the first step
+    receives, each eval batch's matrix update beside its count of valid
+    label pixels, and eval and checkpoint times; with
+    ``profile_step_index``, that step (counted over both runs from 0) runs
+    under ``profile_step``."""
+
+    NAMES = ("make_train_step", "make_eval_step", "_evaluate", "save_checkpoint")
+
+    def __init__(self, torch, train_main, profile_step_index=None):
+        self.torch, self.module = torch, train_main
+        self.profile_step_index = profile_step_index
+        self.orig = {name: getattr(train_main, name) for name in self.NAMES}
+        self.losses, self.evals, self.saves = [], [], []
+        self.new_run()
+
+    def new_run(self):
+        self.start, self.step_ends, self.counts = None, [], []
+
+    def __enter__(self):
+        for name in self.NAMES:
+            setattr(self.module, name, getattr(self, name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.module, name, fn)
+
+    def make_train_step(self, cfg):
+        step = self.orig["make_train_step"](cfg)
+
+        def probed(state, batch, draws, weight):
+            if self.start is None:
+                self.start = (state.step, state.prototypes.clone())
+            if len(self.losses) == self.profile_step_index:
+                out = []
+                profile_step(self.torch, lambda: out.append(step(state, batch, draws, weight)),
+                             "driver profile")
+                state, metrics = out[0]
+            else:
+                state, metrics = step(state, batch, draws, weight)
+            self.losses.append(metrics)
+            end = self.torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.step_ends.append(end)
+            return state, metrics
+        return probed
+
+    def make_eval_step(self, model, num_classes, **kw):
+        eval_step = self.orig["make_eval_step"](model, num_classes, **kw)
+
+        def probed(conf_mat, image, label, valid):
+            out = eval_step(conf_mat, image, label, valid)
+            ok = (label >= 0) & (label < num_classes) & valid[:, None, None]
+            self.counts.append(((out - conf_mat).sum(), ok.sum(), valid.sum()))
+            return out
+        return probed
+
+    def _evaluate(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        first = len(self.counts)
+        t0 = time.perf_counter()
+        cm = self.orig["_evaluate"](*args, **kw)
+        seconds = time.perf_counter() - t0
+        counts = [[int(x) for x in c] for c in self.counts[first:]]
+        total, pixels, images = (sum(c[i] for c in counts) for i in range(3))
+        if int(cm.mat.sum()) != pixels or total != pixels:
+            raise RuntimeError(f"eval: confusion-matrix total {int(cm.mat.sum())} (batch deltas "
+                               f"{total}) vs {pixels} valid label pixels in the crops")
+        self.evals.append(dict(seconds=seconds, images=images, pixels=pixels, miou=cm.miou))
+        return cm
+
+    def save_checkpoint(self, path, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.orig["save_checkpoint"](path, *args, **kw)
+        self.saves.append((os.path.basename(path), time.perf_counter() - t0,
+                           os.path.getsize(path)))
+
+    def step_ms(self):
+        """Device-timeline ms between consecutive step ends of this run,
+        the first interval left out, as the driver's StepTimer does."""
+        self.torch.cuda.synchronize()
+        ends = self.step_ends
+        return [a.elapsed_time(b) for a, b in zip(ends[1:], ends[2:])]
+
+
+def _loader_ms_per_batch(batches: int = 6) -> float:
+    """Host ms per batch of the driver's loader at the driver phase's shapes,
+    with nothing else running: the decode rate the train loop can draw on."""
+    from css_tpu_torch.data import BatchLoader, SyntheticSpec
+
+    loader = BatchLoader(SyntheticSpec(num_classes=21, canvas_hw=(512, 512)),
+                         [f"l{i}" for i in range(8 * batches)], 8, seed=3407)
+    try:
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        return (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        loader.close()
+
+
+def driver_phase(torch, ck, smi: str, profile: bool):
+    """Runs A (4 steps + eval) and B (resumed, steps 5-6 + eval) through the
+    port's entry point and checks them; see the module docstring.  With
+    ``profile``, run A's third step is profiled (the device drained first);
+    the driver's step times then include that step, so read them from a run
+    without ``--profile``."""
+    import gc
+    import shutil
+    import tempfile
+
+    from css_tpu_torch.cli import entries, train_main
+    from css_tpu_torch.config import CONFIG_DIR
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    common = ["--config", os.path.join(CONFIG_DIR, "VOC_config_baseline.yaml"), "--synthetic",
+              "--job_name", "smoke", "--num_labels", "32"]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    cwd = os.getcwd()
+    results, ms = {}, {}
+    try:
+        os.chdir(workdir)   # the YAML's save_dir, ./checkpoints/, lands here
+        last = os.path.join(workdir, "checkpoints", "smoke", "last_model")
+        with _DriverProbe(torch, train_main, 2 if profile else None) as probe:
+            ck.reset_launches()
+            for run, extra in (("A", ["--total_iter", "4", "--max_steps", "4"]),
+                               ("B", ["--resume", last, "--total_iter", "8", "--max_steps", "6"])):
+                if run == "B":
+                    saved = torch.load(last, map_location="cpu", weights_only=True)
+                probe.new_run()
+                t0 = time.perf_counter()
+                results[run] = train_main.run_training(
+                    "ori", entries.ori_pseudo_parser().parse_args(common + extra))
+                print(f"driver run {run}: {time.perf_counter() - t0:.3f} s wall, "
+                      f"{json.dumps(results[run])}", flush=True)
+                ms[run] = probe.step_ms()
+                if run == "B":
+                    start_step, start_protos = probe.start
+            launches = dict(ck.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    losses = [{k: v.item() for k, v in m.items()} for m in probe.losses]
+    bad = [i for i, m in enumerate(losses) if not all(math.isfinite(v) for v in m.values())]
+    if len(losses) != 6 or bad:
+        raise RuntimeError(f"driver: {len(losses)} steps logged, non-finite losses at {bad}")
+    if results["A"]["steps"] != 4 or saved["step"] != 4 or start_step != 4:
+        raise RuntimeError(f"driver: run A ended at step {results['A']['steps']}, saved step "
+                           f"{saved['step']}, run B started at step {start_step}")
+    if results["B"]["steps"] != 6:
+        raise RuntimeError(f"driver: run B ended at step {results['B']['steps']}, want 6")
+    if not torch.equal(start_protos.cpu(), saved["prototypes"]):
+        raise RuntimeError("driver: run B did not start from the prototypes run A saved")
+    if len(probe.evals) != 2:
+        raise RuntimeError(f"driver: {len(probe.evals)} evals, want one per run")
+    want = 21 * 6
+    if any(count != want for count in launches.values()):
+        raise RuntimeError(f"driver: launches {launches} over both runs, want {want} each")
+
+    sps = results["A"]["steps_per_sec"]
+    for i, m in enumerate(losses):
+        print(f"driver step {i + 1}: " + json.dumps(m), flush=True)
+    for i, e in enumerate(probe.evals):
+        print(f"driver eval {'AB'[i]}: {e['seconds'] * 1e3 / e['images']:.3f} ms/image over "
+              f"{e['images']} images ({e['seconds']:.3f} s), {e['pixels']} valid label pixels "
+              f"counted, mIoU {e['miou']:.6f}", flush=True)
+    for name, seconds, size in probe.saves:
+        print(f"driver checkpoint {name}: {seconds:.3f} s, {size / 2**30:.3f} GiB", flush=True)
+    loader_ms = _loader_ms_per_batch()
+    print(f"driver loader alone: {loader_ms:.3f} ms per batch of 8 synthetic 512x512 images "
+          f"(8 decode threads, nothing else running); a step takes 2 batches", flush=True)
+    print(f"driver ({smi}): steps/s {sps:.4f} = {1e3 / sps:.3f} ms/step (driver StepTimer, "
+          f"run A); device-timeline ms between step ends {json.dumps(ms)}; "
+          f"peak memory {peak_gib:.3f} GiB; launches {json.dumps(launches)}", flush=True)
+
+
 _CATEGORIES = (   # first match wins, on the lower-cased kernel name
     ("contrastive K1/K2 + compaction",
      ("k1_live", "k2_live", "sum_partials", "count_live", "scatter_live")),
@@ -311,13 +509,15 @@ _CATEGORIES = (   # first match wins, on the lower-cased kernel name
 )
 
 
-def profile_step(torch, one_step):
-    """One more step under torch.profiler: device time by kernel category,
-    the top kernels, and the device's idle share of the step's wall time
-    (the profiler's own host overhead inflates the wall time)."""
+def profile_step(torch, one_step, label: str = "profile"):
+    """One more step under torch.profiler, the device idle when it starts:
+    device time by kernel category, the top kernels, and the device's idle
+    share of the step's wall time (the profiler's own host overhead
+    inflates the wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
         one_step()
@@ -342,19 +542,20 @@ def profile_step(torch, one_step):
         cat = next((c for c, keys in _CATEGORIES if any(k in low for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + us
     total = sum(by_name.values())
-    print(f"profile: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
+    print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
           f"{1 - busy / wall_us:.4f}, kernels {len(intervals)}", flush=True)
     for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"profile category {cat}: {us / 1e3:.3f} ms ({us / total:.4f})", flush=True)
+        print(f"{label} category {cat}: {us / 1e3:.3f} ms ({us / total:.4f})", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"profile kernel {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
+        print(f"{label} kernel {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=3, help="timed train steps (>= 3)")
     parser.add_argument("--profile", action="store_true",
-                        help="profile one more step and print its kernel table")
+                        help="profile one more bare step and one driver step and print "
+                             "their kernel tables")
     args = parser.parse_args()
     if args.steps < 3:
         parser.error("--steps must be at least 3")
@@ -384,6 +585,7 @@ def main() -> int:
     kernels = kernel_phase(torch, ck)
     contrastive_phase(torch)
     launches = train_phase(torch, ck, args.steps, args.profile)
+    driver_phase(torch, ck, smi, args.profile)
 
     source = "css_tpu_torch/csrc/" + ck.SOURCE
     tpu = "css_tpu/ops/pallas/contrastive_kernels.py"

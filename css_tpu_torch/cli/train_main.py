@@ -1,0 +1,352 @@
+"""Training driver behind the port's ``ori`` entry point, counterpart of
+``css_tpu/cli/train_main.py`` on one device.
+
+Each epoch pairs every labeled batch with the next batch of an endless
+unlabeled stream.  Host threads decode the batches into numpy canvases
+(``data/loader.py``); the canvases are copied to the device from pinned
+memory on a side stream, one batch ahead of the step that consumes them.
+After each epoch the EMA teacher is evaluated on the validation split (every
+epoch, as ``ori`` does), ``best_model`` is saved when the mIoU is at least
+the best so far, and the rolling ``last_model`` is stamped with the best
+mIoU.  The step's losses stay on the device until eval time, so the steps
+between evals run without a host synchronisation.
+
+Random draws are functions of counters, not of a run's history: step ``s``
+draws from a generator seeded by ``(Seed + 1, s)``, so a resumed run draws
+for step ``s`` what an uninterrupted run draws; eval ``e`` (the epoch) crops
+batch ``b`` with a generator seeded by ``(Seed, e, b)``.
+
+What the JAX driver supports and the port does not yet is refused by name
+(``NotImplementedError``), never run as something else: strategies ``mix``
+and ``cross``, OHEM, the deep stem, the fused forward, remat, the uint8
+augmentation law, other negative and mixing modes, and more than one device.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from css_tpu_torch import resolve_device
+from css_tpu_torch.config import CONFIG_DIR, dump_config, load_config
+from css_tpu_torch.data import BatchLoader, InfiniteLoader, build_dataset_specs, read_split_lists
+from css_tpu_torch.models.convert import load_torchvision_backbone
+from css_tpu_torch.models.deeplabv3 import build_model
+from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet, to_channel_first,
+                                       to_channel_last)
+from css_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from css_tpu_torch.train.draws import sample_augment_draws, sample_step_draws
+from css_tpu_torch.train.state import create_train_state
+from css_tpu_torch.train.train_step import StepConfig, make_eval_step, make_train_step, rep_hw
+from css_tpu_torch.utils import ConfusionMatrix, Logger, ScalarWriter
+from css_tpu_torch.utils.preempt import PreemptionGuard
+from css_tpu_torch.utils.profiling import StepTimer, maybe_profile
+
+__all__ = ["run_training", "add_common_args"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def add_common_args(parser, default_job: str):
+    parser.add_argument("--config", type=str,
+                        default=os.path.join(CONFIG_DIR, "VOC_config_baseline.yaml"))
+    parser.add_argument("--resume", type=str, default="")
+    parser.add_argument("--num_labels", type=int, default=92)
+    parser.add_argument("--total_iter", type=int, default=80000)
+    parser.add_argument("--job_name", type=str, default=default_job)
+    # hyper-parameter shadows of the YAML
+    parser.add_argument("--strong_threshold", type=float, default=None)
+    parser.add_argument("--weak_threshold", type=float, default=None)
+    parser.add_argument("--un_threshold", type=float, default=None)
+    parser.add_argument("--temp", type=float, default=None)
+    parser.add_argument("--sche", type=lambda s: s.lower() != "false", default=True)
+    # runtime
+    parser.add_argument("--data_dir", type=str, default=None)
+    parser.add_argument("--txt_dir", type=str, default=None)
+    parser.add_argument("--synthetic", action="store_true",
+                        help="train on synthetic data (no dataset required)")
+    parser.add_argument("--num_devices", type=int, default=None)
+    parser.add_argument("--profile_dir", type=str, default=None)
+    parser.add_argument("--max_steps", type=int, default=None,
+                        help="hard cap on optimizer steps (debug/smoke)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (the default) or cpu")
+    return parser
+
+
+def _refuse_unported(cfg, strategy: str, args) -> None:
+    """Raises NotImplementedError naming the first setting the port cannot
+    run yet, with its item in ROADMAP.md's Queue 1."""
+    crop = cfg.require("Dataset.crop_size")
+    sup_loss = cfg.get("Loss.sup_loss", "ohem" if cfg.require("Network.num_class") == 19 else "ce")
+    backbone = cfg.get("Network.backbone", "resnet101")
+    fused = cfg.get("Training_Setting.fused_forward", False)
+    remat = cfg.get("Network.remat", crop[0] * crop[1] > 512 * 512)
+    quantize = cfg.get("Training_Setting.aug_quantize", False)
+    negative_mode = cfg.get("Loss.negative_mode", "sampled_pallas")
+    mix_mode = cfg.get("Dataset.mix_mode", "cutmix")
+    checks = [   # (setting, value, ported, queue item)
+        ("strategy", strategy, strategy == "ori", 12),
+        ("Loss.sup_loss", sup_loss, sup_loss == "ce", 13),
+        ("Network.backbone", backbone, backbone != "resnet101_stem", 13),
+        ("Training_Setting.fused_forward", fused, not fused, 13),
+        ("Network.remat", remat, not remat, 13),
+        ("Training_Setting.aug_quantize", quantize, not quantize, 15),
+        ("Loss.negative_mode", negative_mode, negative_mode == "sampled_pallas", 15),
+        ("Dataset.mix_mode", mix_mode, mix_mode == "cutmix", 12),
+        ("--num_devices", args.num_devices, args.num_devices in (None, 1), 14),
+    ]
+    for name, value, ported, item in checks:
+        if not ported:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to css_tpu_torch yet (item {item})")
+
+
+def _apply_cli_shadows(cfg, args) -> None:
+    """``ori`` reads its thresholds from the YAML; flags given override them."""
+    for flag, key in [(args.strong_threshold, "Loss.strong_threshold"),
+                      (args.weak_threshold, "Loss.weak_threshold"),
+                      (args.un_threshold, "Loss.un_threshold"),
+                      (args.temp, "Loss.temp")]:
+        if flag is not None:
+            cfg.set(key, flag)
+    if args.data_dir:
+        cfg.set("Dataset.data_dir", args.data_dir)
+    if args.txt_dir:
+        cfg.set("Dataset.txt_dir", args.txt_dir)
+    if args.synthetic:
+        cfg.set("Dataset.name", "Synthetic")
+
+
+def _build_state_and_steps(cfg, args, device):
+    num_classes = cfg.require("Network.num_class")
+    output_dim = cfg.get("Network.output_dim", 256)
+    model = build_model(num_classes, output_dim, cfg.get("Network.backbone", "resnet101"),
+                        dtype=_DTYPES[cfg.get("Network.dtype", "bfloat16")],
+                        seed=cfg.get("Seed", 3407))
+    pretrained = cfg.get("Network.pretrained", "./pretrained/resnet101.pth")
+    if pretrained and os.path.exists(pretrained):
+        sd = torch.load(pretrained, map_location="cpu", weights_only=True)
+        load_torchvision_backbone(sd.get("state_dict", sd), model)
+    state = create_train_state(
+        model, num_classes, output_dim,
+        base_lr=float(cfg.require("Optim.lr")),
+        weight_decay=float(cfg.require("Optim.weight_decay")),
+        total_steps=args.total_iter,
+        power=float(cfg.get("Lr_Scheduler.power", 0.9)),
+        min_lr=float(cfg.get("Lr_Scheduler.min_lr", 1e-4)),
+        device=device)
+    step_cfg = StepConfig(
+        num_classes=num_classes,
+        crop_hw=tuple(cfg.require("Dataset.crop_size")),
+        scale_range=tuple(cfg.require("Dataset.scale_size")),
+        mix_mode=cfg.get("Dataset.mix_mode", "cutmix"),
+        un_threshold=cfg.get("Loss.un_threshold", 0.97),
+        weak_threshold=cfg.get("Loss.weak_threshold", 0.7),
+        strong_threshold=cfg.get("Loss.strong_threshold", 0.97),
+        temp=cfg.get("Loss.temp", 0.5),
+        num_queries=cfg.get("Loss.num_queries", 256),
+        num_negatives=cfg.get("Loss.num_negatives", 512),
+        proto_alpha=cfg.get("Loss.alpha", 0.99),
+        ema_alpha=cfg.get("EMA.alpha", 0.99),
+        contrast_enabled=bool(cfg.get("Loss.is_available", True)),
+        negative_mode=cfg.get("Loss.negative_mode", "sampled_pallas"),
+    )
+    return (state, step_cfg, make_train_step(step_cfg),
+            make_eval_step(state.teacher, num_classes))
+
+
+def _make_loaders(cfg, args, batch_size: int):
+    name = cfg.require("Dataset.name")
+    num_classes = cfg.require("Network.num_class")
+    canvas = tuple(cfg.get("Dataset.canvas_size", cfg.require("Dataset.crop_size")))
+    train_spec, test_spec = build_dataset_specs(
+        name, cfg.get("Dataset.data_dir", ""), canvas, num_classes,
+        cache_dir=cfg.get("Dataset.cache_dir", None) or None)
+    seed = cfg.get("Seed", 3407)
+    if name == "Synthetic":
+        labeled = [f"l{i}" for i in range(max(args.num_labels, batch_size))]
+        unlabeled = [f"u{i}" for i in range(max(batch_size * 8, 64))]
+        test = [f"v{i}" for i in range(batch_size * 2)]
+    else:
+        labeled, unlabeled, test = read_split_lists(cfg.require("Dataset.txt_dir"),
+                                                    args.num_labels, seed)
+
+    def mk(ids, spec, shuffle, drop):
+        return BatchLoader(spec, ids, batch_size, seed=seed, shuffle=shuffle, drop_last=drop)
+
+    return (mk(labeled, train_spec, True, True), mk(unlabeled, train_spec, True, True),
+            mk(test, test_spec, False, False))
+
+
+def _generator(device: torch.device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded by the tuple of counters ``key``."""
+    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _device_prefetch(batches, device: torch.device):
+    """Yields each numpy batch of ``batches`` as tensors on ``device``.
+
+    On the card the canvases go through pinned memory and a side stream,
+    and batch n + 1's copy is started before batch n is yielded, so it runs
+    under batch n's step; the compute stream waits for a batch's copy only
+    when it takes the batch.
+    """
+    if device.type != "cuda":
+        for batch in batches:
+            yield {k: torch.from_numpy(v) for k, v in batch.items()}
+        return
+    copy_stream = torch.cuda.Stream(device)
+
+    def start_copy(batch):
+        with torch.cuda.stream(copy_stream):
+            return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+                    for k, v in batch.items()}
+
+    it = iter(batches)
+    ahead = next(it, None)
+    ahead = None if ahead is None else start_copy(ahead)
+    while ahead is not None:
+        current = ahead
+        compute = torch.cuda.current_stream(device)
+        compute.wait_stream(copy_stream)
+        for t in current.values():
+            t.record_stream(compute)   # not reused by a later copy while in use
+        ahead = next(it, None)
+        ahead = None if ahead is None else start_copy(ahead)
+        yield current
+
+
+def _epoch_batches(train_l, u_iter):
+    for batch_l in train_l:
+        batch_u = next(u_iter)
+        yield {"l_image": batch_l["image"], "l_label": batch_l["label"],
+               "l_valid_hw": batch_l["valid_hw"], "u_image": batch_u["image"],
+               "u_valid_hw": batch_u["valid_hw"]}
+
+
+def _evaluate(eval_step, test_loader, crop, num_classes: int, seed: int, eval_index: int,
+              device: torch.device) -> ConfusionMatrix:
+    """Teacher eval: one random crop of each validation image (the
+    reference's test protocol), the confusion matrix accumulated on the
+    device and read once at the end."""
+    mat = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
+    for bi, batch in enumerate(_device_prefetch(test_loader, device)):
+        img = to_channel_first(batch["image"].float() / 255.0)
+        lab = batch["label"]
+        lab = torch.where((lab >= 0) & (lab < num_classes), lab, -1)
+        b, _, hh, ww = img.shape
+        draws = sample_augment_draws(_generator(device, seed, eval_index, bi), b, (1.0, 1.0),
+                                     photometric=False)
+        img_c, lab_c, _ = batch_transform(img, lab[:, None], img.new_zeros((b, 1, hh, ww)),
+                                          batch["valid_hw"], crop, **draws.as_kwargs())
+        mat = eval_step(mat, to_channel_last(normalize_imagenet(img_c)), lab_c[:, 0],
+                        batch["valid"])
+    cm = ConfusionMatrix(num_classes)
+    cm.update(mat.cpu().numpy())
+    return cm
+
+
+def run_training(strategy: str, args) -> dict:
+    """Trains ``strategy`` as ``args`` (the entry point's flags) say; returns
+    ``{"best_miou", "steps", "preempted", "steps_per_sec"}``."""
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    _refuse_unported(cfg, strategy, args)
+    _apply_cli_shadows(cfg, args)
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+
+    seed = cfg.get("Seed", 3407)
+    batch_size = cfg.require("Dataset.batch_size")
+    save_dir = os.path.join(cfg.get("Training_Setting.save_dir", "./checkpoints"),
+                            str(args.job_name))
+    log = Logger(os.path.join(save_dir, "train.log"))
+    tb = ScalarWriter(os.path.join(save_dir, "tb"))
+    guard = PreemptionGuard()
+    loaders = ()
+    try:
+        dump_config(cfg, save_dir)
+        log.info(f"device={device} strategy={strategy} batch={batch_size}+{batch_size}")
+        state, step_cfg, train_step, eval_step = _build_state_and_steps(cfg, args, device)
+        loaders = train_l, train_u, test_loader = _make_loaders(cfg, args, batch_size)
+        if len(train_l) == 0:
+            # drop_last leaves no batch: the epoch loop would run no step
+            raise ValueError(
+                f"labeled split too small: {args.num_labels} labels make fewer than one "
+                f"batch of {batch_size} (drop_last). Lower Dataset.batch_size or raise "
+                f"--num_labels.")
+        steps_per_epoch = len(train_l)
+        total_epoch = max(int(args.total_iter / steps_per_epoch), 1)
+        log.info(f"total epochs: {total_epoch} ({steps_per_epoch} steps/epoch)")
+
+        start_epoch, best_miou = 0, 0.0
+        if args.resume:
+            if os.path.exists(args.resume):
+                state, start_epoch, best_miou = restore_checkpoint(args.resume, state)
+                log.info(f"resumed from {args.resume} at epoch {start_epoch} "
+                         f"step {state.step}")
+            else:
+                log.info(f"WARNING --resume {args.resume} does not exist; starting afresh")
+
+        h, w = rep_hw(step_cfg.crop_hw)
+        rep_pixels = 2 * batch_size * h * w
+        timer = StepTimer()
+        u_iter = InfiniteLoader(train_u, start_epoch)
+        guard.install()
+        done = preempted = False
+        for epoch in range(start_epoch, total_epoch):
+            train_l.set_epoch(epoch)
+            with maybe_profile(args.profile_dir, epoch == start_epoch):
+                for batch in _device_prefetch(_epoch_batches(train_l, u_iter), device):
+                    draws = sample_step_draws(_generator(device, seed + 1, state.step),
+                                              step_cfg, batch_size, batch_size, rep_pixels)
+                    state, metrics = train_step(state, batch, draws, 1.0)  # ori: weight 1
+                    timer.tick()
+                    if args.max_steps and state.step >= args.max_steps:
+                        done = True
+                        break
+                    if guard.should_stop():
+                        preempted = done = True
+                        break
+
+            if preempted:
+                # skip eval; saved with this epoch so --resume replays it
+                log.info(f"SIGTERM: preemption checkpoint at epoch {epoch} step "
+                         f"{state.step}; exiting cleanly")
+                save_checkpoint(os.path.join(save_dir, "last_model"), state, epoch, best_miou)
+                break
+
+            miou = _evaluate(eval_step, test_loader, step_cfg.crop_hw, step_cfg.num_classes,
+                             seed, epoch, device).miou
+            best_miou = max(best_miou, miou)
+            m = {k: float(v) for k, v in metrics.items()}
+            tb.scalars(state.step, {"eval/miou": miou, "loss/total": m["total"],
+                                    "loss/sup": m["sup"], "loss/unsup": m["unsup"],
+                                    "loss/contrast": m["contrast"]})
+            log.info(f"Epoch:{epoch} * mIoU {miou:.4f} Best_mIoU {best_miou:.4f} "
+                     f"loss {m['total']:.4f} (sup {m['sup']:.4f} unsup {m['unsup']:.4f} "
+                     f"contrast {m['contrast']:.4f}) {timer.summary()} Time {time.asctime()}")
+            if miou >= best_miou:
+                save_checkpoint(os.path.join(save_dir, "best_model"), state, epoch + 1, miou)
+            # rolling recovery point, stamped with the best mIoU so that a
+            # resume cannot lower the bar for best_model
+            if epoch % 10 == 0 or done or epoch == total_epoch - 1:
+                save_checkpoint(os.path.join(save_dir, "last_model"), state, epoch + 1,
+                                best_miou)
+            if done:
+                break
+    finally:
+        guard.uninstall()
+        for loader in loaders:
+            loader.close()
+        log.close()
+        tb.close()
+    return {"best_miou": best_miou, "steps": state.step, "preempted": preempted,
+            # steady-state wall rate of the whole loop (decode, copy, step),
+            # the first interval left out
+            "steps_per_sec": timer.steps_per_sec}

@@ -8,16 +8,22 @@ covers any trunk (ResNet-101 or the tiny test trunk):
 * ``.../kernel`` (HWIO) -> ``.../weight`` (OIHW);
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``;
 * batch stats ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+``load_torchvision_backbone`` loads a torchvision ``resnet101()`` state dict
+(``conv1``/``bn1``/``layerK.B.*``, the reference's ImageNet trunk) into the
+port's plain-stem trunk.  Both sides are OIHW, so only the names change.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping
 
+import re
+
 import numpy as np
 import torch
 
-__all__ = ["from_jax_variables"]
+__all__ = ["from_jax_variables", "load_torchvision_backbone"]
 
 _PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
@@ -44,3 +50,41 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping) -> Dict[str, torch
             key = ".".join(path[:-1] + (names[path[-1]],))
             sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
     return sd
+
+
+_BLOCK_KEY = re.compile(r"^layer(\d+)_(\d+)\.(conv[123]|downsample)\.(conv|bn)\.(.+)$")
+
+
+def _torchvision_key(key: str) -> str:
+    """torchvision's name for the port's trunk entry ``key``: ``stem.conv.weight``
+    -> ``conv1.weight``, ``layer3_4.conv2.bn.running_var`` ->
+    ``layer3.4.bn2.running_var``, ``layer1_0.downsample.conv.weight`` ->
+    ``layer1.0.downsample.0.weight``."""
+    if key.startswith("stem."):
+        part, leaf = key[len("stem."):].split(".", 1)
+        return f"{'conv1' if part == 'conv' else 'bn1'}.{leaf}"
+    m = _BLOCK_KEY.match(key)
+    if m is None:
+        raise KeyError(f"no torchvision name for trunk entry {key}")
+    stage, block, unit, part, leaf = m.groups()
+    if unit == "downsample":
+        name = f"downsample.{0 if part == 'conv' else 1}"
+    else:
+        name = unit if part == "conv" else f"bn{unit[-1]}"
+    return f"layer{stage}.{block}.{name}.{leaf}"
+
+
+def load_torchvision_backbone(sd: Mapping[str, torch.Tensor],
+                              model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Loads the torchvision ResNet state dict ``sd`` into ``model.backbone``
+    (a plain-stem trunk); returns the trunk's state dict under the port's
+    names.  Keys of ``sd`` outside the trunk (``fc.*``,
+    ``num_batches_tracked``) are ignored; a missing one raises KeyError."""
+    mapped = {}
+    for key in model.backbone.state_dict():
+        tv_key = _torchvision_key(key)
+        if tv_key not in sd:
+            raise KeyError(f"{tv_key} (for backbone.{key}) is not in the state dict")
+        mapped[key] = torch.as_tensor(np.asarray(sd[tv_key]), dtype=torch.float32)
+    model.backbone.load_state_dict(mapped, strict=True)
+    return mapped

@@ -34,7 +34,7 @@ from css_tpu_torch.ops.onehot import label_onehot
 from css_tpu_torch.train.draws import StepDraws
 from css_tpu_torch.train.state import TrainState, ema_update
 
-__all__ = ["StepConfig", "make_train_step", "rep_hw"]
+__all__ = ["StepConfig", "make_train_step", "make_eval_step", "rep_hw"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +55,7 @@ class StepConfig:
     num_negatives: int = 512
     proto_alpha: float = 0.99
     ema_alpha: float = 0.99
+    contrast_enabled: bool = True             # Loss.is_available in the YAML
     negative_mode: str = "sampled_pallas"
 
 
@@ -146,17 +147,20 @@ def make_train_step(cfg: StepConfig):
         sup = cross_entropy(pred_l_large, l_label)
         unsup = attention_threshold_loss(pred_u_large, unsup_label, conf_cls, cfg.un_threshold)
 
-        hw = (pred_l.shape[1], pred_l.shape[2])
-        mask_l = nearest_resize((l_label >= 0).float(), hw)
-        mask_u = nearest_resize((conf_cls >= cfg.weak_threshold).float(), hw)
-        label_all = torch.cat([label_onehot(nearest_resize(l_label, hw), c),
-                               label_onehot(nearest_resize(unsup_label, hw), c)])
-        prob_all = torch.softmax(torch.cat([pred_l, pred_u]).detach(), dim=-1)
-        contrast, new_protos = prototype_contrastive_loss(
-            torch.cat([rep_l, rep_u]), label_all, torch.cat([mask_l, mask_u]),
-            prob_all, state.prototypes, **draws.contrast.as_kwargs(),
-            num_negatives=cfg.num_negatives, temp=cfg.temp,
-            strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha)
+        if cfg.contrast_enabled:
+            hw = (pred_l.shape[1], pred_l.shape[2])
+            mask_l = nearest_resize((l_label >= 0).float(), hw)
+            mask_u = nearest_resize((conf_cls >= cfg.weak_threshold).float(), hw)
+            label_all = torch.cat([label_onehot(nearest_resize(l_label, hw), c),
+                                   label_onehot(nearest_resize(unsup_label, hw), c)])
+            prob_all = torch.softmax(torch.cat([pred_l, pred_u]).detach(), dim=-1)
+            contrast, new_protos = prototype_contrastive_loss(
+                torch.cat([rep_l, rep_u]), label_all, torch.cat([mask_l, mask_u]),
+                prob_all, state.prototypes, **draws.contrast.as_kwargs(),
+                num_negatives=cfg.num_negatives, temp=cfg.temp,
+                strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha)
+        else:
+            contrast, new_protos = sup.new_zeros(()), state.prototypes
         total = sup + unsup + contrast * contrast_weight
 
         state.optimizer.zero_grad(set_to_none=True)
@@ -172,3 +176,67 @@ def make_train_step(cfg: StepConfig):
         return state, metrics
 
     return step
+
+
+def _round_to_multiple(x: float, mult: int = 8) -> int:
+    """Nearest positive multiple of ``mult``: the TTA-scaled input sizes of
+    the reference."""
+    return max(mult, int(round(x / mult)) * mult)
+
+
+def _conf_matrix_delta(yhat: torch.Tensor, label: torch.Tensor, valid: torch.Tensor,
+                       num_classes: int) -> torch.Tensor:
+    """[C, C] int64 confusion-matrix update (rows = target, columns =
+    prediction): one bincount of length C^2 + 1 whose last bin, where padded
+    rows (``valid`` False) and labels outside [0, C) land, is dropped."""
+    c = num_classes
+    ok = (label >= 0) & (label < c) & valid[:, None, None]
+    idx = torch.where(ok, label.long() * c + yhat.long(), c * c)
+    return torch.bincount(idx.reshape(-1), minlength=c * c + 1)[:-1].reshape(c, c)
+
+
+def make_eval_step(model, num_classes: int, flip: bool = False, scales=(1.0,)):
+    """Build ``eval_step(conf_mat, image, label, valid) -> conf_mat``, the
+    confusion-matrix accumulation over ``model`` (the EMA teacher) in eval
+    mode, without gradients, in the model's compute dtype.
+
+    ``image`` [B, H, W, 3] normalized NHWC, ``label`` [B, H, W] (-1 or any
+    value outside [0, C) counts nothing), ``valid`` [B] bool (padded rows
+    count nothing).  The logits are upsampled to the label size with
+    ``bilinear_resize(align_corners=True)``.  ``flip``/``scales`` add
+    test-time augmentation: softmax probabilities averaged over a horizontal
+    flip and/or input rescales (rounded to multiples of 8) before the argmax;
+    without them the step takes the argmax of the upsampled logits.
+    """
+    scales = tuple(float(s) for s in scales)
+    plain = (not flip) and scales == (1.0,)
+
+    def _logits(image, out_hw):
+        pred, _ = model(image)
+        return bilinear_resize(pred, out_hw, align_corners=True)
+
+    @torch.no_grad()
+    def eval_step(conf_mat, image, label, valid):
+        was_training = model.training
+        model.eval()
+        try:
+            out_hw = label.shape[1:3]
+            if plain:
+                yhat = torch.argmax(_logits(image, out_hw), dim=-1)
+            else:
+                h, w = int(image.shape[1]), int(image.shape[2])
+                prob = 0
+                for s in scales:
+                    im = image if s == 1.0 else bilinear_resize(
+                        image, (_round_to_multiple(h * s), _round_to_multiple(w * s)),
+                        align_corners=True)
+                    prob = prob + torch.softmax(_logits(im, out_hw).float(), dim=-1)
+                    if flip:
+                        flipped = _logits(im.flip(2), out_hw).float()
+                        prob = prob + torch.softmax(flipped, dim=-1).flip(2)
+                yhat = torch.argmax(prob, dim=-1)
+        finally:
+            model.train(was_training)
+        return conf_mat + _conf_matrix_delta(yhat, label, valid, num_classes)
+
+    return eval_step

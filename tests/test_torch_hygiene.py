@@ -1,6 +1,7 @@
 """The port stands alone: no file of css_tpu_torch/, chip_smoke.py or
-kernel_ab.py imports JAX or css_tpu, and the entry points run on the card
-unless asked for the CPU."""
+kernel_ab.py imports JAX, css_tpu, PyYAML or orbax, PIL and tensorboardX are
+imported only inside the functions that need them, and the entry points run
+on the card unless asked for the CPU."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "css_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "css_tpu", "yaml", "orbax")
+OPTIONAL = ("PIL", "tensorboardX")      # imported inside functions only
 
 
 def _imported_modules(path: Path):
@@ -20,6 +22,22 @@ def _imported_modules(path: Path):
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
+
+
+def _top_level_modules(path: Path):
+    """Modules imported at module level (outside any function)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        else:
+            stack.extend(ast.iter_child_nodes(node))
 
 
 def _port_files():
@@ -37,6 +55,14 @@ def test_port_imports_neither_jax_nor_css_tpu():
             if top in FORBIDDEN:   # "css_tpu_torch" is its own top-level name
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
     assert not bad, bad
+
+
+def test_optional_packages_are_imported_inside_functions_only():
+    bad = [f"{path.relative_to(ROOT)}: {mod}" for path in _port_files()
+           for mod in _top_level_modules(path) if mod.split(".")[0] in OPTIONAL]
+    assert not bad, bad
+    datasets = ROOT / "css_tpu_torch" / "data" / "datasets.py"
+    assert "PIL" in {m.split(".")[0] for m in _imported_modules(datasets)}
 
 
 def test_forbidden_scan_tells_css_tpu_from_the_port(tmp_path):
