@@ -26,7 +26,24 @@ exit code, and no result line:
    kernel launch counters zeroed just before and read just after: every
    loss must be finite, each kernel must launch once per class per step,
    and the peak device memory must stay within PEAK_GIB_LIMIT;
-6. driver: with the train phase's state freed, the port's own entry point
+6. strategies: ``mix``, then ``cross``, continuing the train phase's state
+   (so the prototypes are real) with their entry points' thresholds
+   (strong 0.8, weak 0.7, unsupervised 0.97, representation temperature
+   0.5): 1 warm-up + ``--steps`` timed steps each, ``cross`` timed with the
+   representation-space labels after a warm-up on the logit-space ones; it
+   fails unless every loss is finite, each kernel launched 21 times a step
+   and the phase's peak memory stays within STRATEGIES_PEAK_GIB_LIMIT, and
+   prints each strategy's ms/step beside the train phase's ``ori`` ms/step
+   and the share of valid unlabeled pixels that keep a label (for ``mix``,
+   where the two label spaces agree);
+7. cross entry point: with the state freed, ``cross`` through its entry
+   point's parser (shipped VOC YAML, ``--synthetic --num_labels 16
+   --total_iter 4 --warmup 1``: 2 epochs of 2 steps, an eval after each) in
+   a temporary directory; it fails unless the losses are finite, the steps
+   ran with the ramp-down weights of epochs 0, 0, 1, 1 and switched to the
+   representation-space labels at step 3, both evals counted every valid
+   label pixel and each kernel launched 84 times;
+8. driver: with the train phase's state freed, the port's own entry point
    (``css_tpu_torch.cli``, through its argument parser) runs twice on the
    shipped VOC YAML with ``--synthetic``, in a temporary directory removed
    at the end: run A ``--num_labels 32 --total_iter 4 --max_steps 4`` (4
@@ -65,6 +82,7 @@ K2_RTOL = 1e-2                  # plus K2's bf16 exp: one bf16 step (2^-8) may f
 K2_ATOL_FRACTION = 1e-2         # of max |M|
 PEAK_GIB_LIMIT = 33.213         # the step's peak before the live-row compaction
                                 # (33.113 GiB) + 0.1 GiB for the saved compactions
+STRATEGIES_PEAK_GIB_LIMIT = 33.232   # the phase's first reading (33.132 GiB) + 0.1 GiB
 
 
 def _smi() -> str:
@@ -250,6 +268,13 @@ def contrastive_phase(torch):
           flush=True)
 
 
+def _check_finite(losses, label: str):
+    for i, m in enumerate(losses):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"{label}: non-finite losses at timed step {i}: {bad}")
+
+
 def train_phase(torch, ck, steps: int, profile: bool):
     from css_tpu_torch.models.deeplabv3 import build_model
     from css_tpu_torch.train.draws import sample_step_draws
@@ -313,7 +338,125 @@ def train_phase(torch, ck, steps: int, profile: bool):
           f"launches {json.dumps(launches)}", flush=True)
     if profile:
         profile_step(torch, one_step)
-    return launches
+    return launches, dict(state=state, batch=batch, g=g, ms=dt * 1e3)
+
+
+def strategies_phase(torch, ck, train, steps: int, profile: bool):
+    """Full-size ``mix`` and ``cross`` steps, continuing the train phase's
+    state (its prototypes are real), with the thresholds of their entry
+    points; then a ``cross`` run through its entry point that switches to
+    the representation-space labels inside the run."""
+    from css_tpu_torch.train import train_step as ts
+    from css_tpu_torch.train.draws import sample_step_draws
+
+    state, batch, g = train["state"], train["batch"], train["g"]
+    c, crop, bsz = 21, 512, 8
+    h, w = ts.rep_hw((crop, crop))
+    kept = []
+    real_mix = ts.mix_batch
+
+    def recording_mix(img, labels, confs, **kw):
+        # before mixing: padding has confidence 0, a disagreement label -1
+        valid = confs[:, 0] > 0
+        kept.append(torch.stack([(valid & (labels[:, 0] >= 0)).sum(), valid.sum()]))
+        return real_mix(img, labels, confs, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {}
+    for strategy in ("mix", "cross"):
+        cfg = ts.StepConfig(num_classes=c, crop_hw=(crop, crop), scale_range=(0.5, 1.5),
+                            strategy=strategy, strong_threshold=0.8, weak_threshold=0.7,
+                            un_threshold=0.97, rep_temp=0.5)
+        step = ts.make_train_step(cfg)
+
+        def one_step(use_rep):
+            draws = sample_step_draws(g, cfg, bsz, bsz, 2 * bsz * h * w)
+            return step(state, batch, draws, 1.0, use_rep)[1]
+
+        one_step(False)                       # warm-up; cross still on logit labels
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        kept.clear()
+        ts.mix_batch = recording_mix
+        losses, times = [], []
+        try:
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                losses.append(one_step(strategy == "cross"))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            ts.mix_batch = real_mix
+        launches = dict(ck.LAUNCHES)
+        losses = [{k: v.item() for k, v in m.items()} for m in losses]
+        for i, m in enumerate(losses):
+            print(f"{strategy} step {i}: {times[i] * 1e3:.3f} ms " + json.dumps(m), flush=True)
+        _check_finite(losses, strategy)
+        if any(count != c * steps for count in launches.values()):
+            raise RuntimeError(f"{strategy}: launches {launches} in {steps} steps, "
+                               f"want {c * steps} each")
+        ms[strategy] = sum(times) / steps * 1e3
+        share = torch.stack(kept).sum(0).tolist()
+        print(f"{strategy}: {ms[strategy]:.3f} ms/step (min {min(times) * 1e3:.3f}, max "
+              f"{max(times) * 1e3:.3f}) vs ori {train['ms']:.3f} ms/step in this run "
+              f"({ms[strategy] / train['ms']:.4f}x); unlabeled pixels with a label / valid "
+              f"{share[0]}/{share[1]} = {share[0] / share[1]:.4f}; launches "
+              f"{json.dumps(launches)}", flush=True)
+        if profile:
+            profile_step(torch, lambda: one_step(strategy == "cross"), f"{strategy} profile")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if peak_gib > STRATEGIES_PEAK_GIB_LIMIT:
+        raise RuntimeError(f"strategies: peak memory {peak_gib:.3f} GiB exceeds "
+                           f"{STRATEGIES_PEAK_GIB_LIMIT} GiB")
+    print(f"strategies: peak memory {peak_gib:.3f} GiB (limit {STRATEGIES_PEAK_GIB_LIMIT})",
+          flush=True)
+
+
+def cross_entry_phase(torch, ck):
+    """``cross`` through its entry point: 2 epochs of 2 steps, ``--warmup
+    1``, an eval after each epoch, in a temporary directory."""
+    import gc
+    import shutil
+    import tempfile
+
+    from css_tpu_torch.cli import entries, train_main
+    from css_tpu_torch.config import CONFIG_DIR
+    from css_tpu_torch.train.schedulers import rampdown_value
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = entries.cross_label_parser().parse_args(
+        ["--config", os.path.join(CONFIG_DIR, "VOC_config_baseline.yaml"), "--synthetic",
+         "--num_labels", "16", "--total_iter", "4", "--warmup", "1", "--job_name", "smoke"])
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cross_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(workdir)
+        with _DriverProbe(torch, train_main) as probe:
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            result = train_main.run_training("cross", args)
+            seconds = time.perf_counter() - t0
+            launches = dict(ck.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+    losses = [{k: v.item() for k, v in m.items()} for m in probe.losses]
+    _check_finite(losses, "cross entry point")
+    flags = [(weight, use_rep) for weight, use_rep in probe.step_args]
+    ramp = [rampdown_value(e, 0, 200, 1.0, 0.0, -5.0) for e in (0, 0, 1, 1)]
+    if result["steps"] != 4 or flags != list(zip(ramp, (False, False, True, True))):
+        raise RuntimeError(f"cross entry point: {result['steps']} steps, (weight, use_rep) "
+                           f"{flags}, want {list(zip(ramp, (False, False, True, True)))}")
+    if len(probe.evals) != 2 or any(count != 21 * 4 for count in launches.values()):
+        raise RuntimeError(f"cross entry point: {len(probe.evals)} evals, launches {launches}")
+    for i, m in enumerate(losses):
+        print(f"cross entry step {i + 1} (weight {flags[i][0]:.6f}, rep labels "
+              f"{flags[i][1]}): " + json.dumps(m), flush=True)
+    print(f"cross entry point: {seconds:.3f} s wall, {json.dumps(result)}, device-timeline ms "
+          f"between step ends {json.dumps(probe.step_ms())}, launches {json.dumps(launches)}",
+          flush=True)
 
 
 class _DriverProbe:
@@ -331,7 +474,7 @@ class _DriverProbe:
         self.torch, self.module = torch, train_main
         self.profile_step_index = profile_step_index
         self.orig = {name: getattr(train_main, name) for name in self.NAMES}
-        self.losses, self.evals, self.saves = [], [], []
+        self.losses, self.evals, self.saves, self.step_args = [], [], [], []
         self.new_run()
 
     def new_run(self):
@@ -349,16 +492,17 @@ class _DriverProbe:
     def make_train_step(self, cfg):
         step = self.orig["make_train_step"](cfg)
 
-        def probed(state, batch, draws, weight):
+        def probed(state, batch, draws, *args):
             if self.start is None:
                 self.start = (state.step, state.prototypes.clone())
+            self.step_args.append(args)
             if len(self.losses) == self.profile_step_index:
                 out = []
-                profile_step(self.torch, lambda: out.append(step(state, batch, draws, weight)),
+                profile_step(self.torch, lambda: out.append(step(state, batch, draws, *args)),
                              "driver profile")
                 state, metrics = out[0]
             else:
-                state, metrics = step(state, batch, draws, weight)
+                state, metrics = step(state, batch, draws, *args)
             self.losses.append(metrics)
             end = self.torch.cuda.Event(enable_timing=True)
             end.record()
@@ -584,7 +728,10 @@ def main() -> int:
 
     kernels = kernel_phase(torch, ck)
     contrastive_phase(torch)
-    launches = train_phase(torch, ck, args.steps, args.profile)
+    launches, train = train_phase(torch, ck, args.steps, args.profile)
+    strategies_phase(torch, ck, train, args.steps, args.profile)
+    del train
+    cross_entry_phase(torch, ck)
     driver_phase(torch, ck, smi, args.profile)
 
     source = "css_tpu_torch/csrc/" + ck.SOURCE

@@ -1,11 +1,14 @@
-"""The port's training entry point, counterpart of ``css_tpu/cli/entries.py``.
+"""The port's training entry points, counterpart of ``css_tpu/cli/entries.py``.
 
     python -m css_tpu_torch.cli.entries ori --synthetic --num_labels 32 \\
         --total_iter 4 --max_steps 4
+    python -m css_tpu_torch.cli.entries cross --synthetic --num_labels 16 \\
+        --total_iter 4 --warmup 1
 
-``ori`` is the reference's ``ori_pseudo.py``: logit-space pseudo-labels.  It
-runs on the card unless ``--device cpu`` is given.  The strategies ``mix``
-and ``cross`` are not ported yet.
+``ori`` is the reference's ``ori_pseudo.py`` (logit-space pseudo-labels),
+``mix`` its ``mix_label.py`` (agreement labels) and ``cross`` its
+``cross_label.py`` (cross-space supervision after a warmup).  Each runs on
+the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -15,24 +18,48 @@ import sys
 
 from css_tpu_torch.cli.train_main import add_common_args, run_training
 
-__all__ = ["ori_pseudo_parser", "ori_pseudo_main", "main"]
+__all__ = ["ori_pseudo_parser", "ori_pseudo_main", "mix_label_parser", "mix_label_main",
+           "cross_label_parser", "cross_label_main", "main"]
 
 _ORI_DOC = """Baseline entry point: logit-space pseudo-labels (reference
 ori_pseudo.py), on one CUDA device.  CLI-compatible with the reference script;
 its --gpu_id/--world_size/--port flags are accepted and ignored."""
 
+_MIX_DOC = """Mix-label entry point: collaborative (agreement) pseudo-labels
+(reference mix_label.py).  Pixels where logit-space and representation-space
+labels disagree are ignored; the contrastive hard-anchor probability comes
+from the representation space; the contrast weight is ramped down per epoch."""
 
-def _legacy_dist_flags(parser):
+_CROSS_DOC = """Cross-label entry point: cross-space supervision (reference
+cross_label.py).  The unsupervised loss target switches from logit-space to
+representation-space pseudo-labels after --warmup epochs; prototypes can be
+seeded from another run via --prototypes_resume.  (The reference script
+references an undefined --total_iter flag and crashes as shipped; this entry
+point defines the flag properly.)"""
+
+
+def _parser(strategy: str, doc: str, default_job: str) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog=f"css_tpu_torch.cli.entries {strategy}",
+                                     description=doc)
+    add_common_args(parser, default_job=default_job)
     # accepted for reference-CLI compatibility; the port runs one device
-    parser.add_argument("--gpu_id", type=str, default="")
-    parser.add_argument("--world_size", type=str, default="")
-    parser.add_argument("--port", type=str, default="")
+    for flag in ("--gpu_id", "--world_size", "--port"):
+        parser.add_argument(flag, type=str, default="")
+    return parser
 
 
 def ori_pseudo_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="css_tpu_torch.cli.entries ori", description=_ORI_DOC)
-    add_common_args(parser, default_job="VOC_92_baseline")
-    _legacy_dist_flags(parser)
+    return _parser("ori", _ORI_DOC, "VOC_92_baseline")
+
+
+def mix_label_parser() -> argparse.ArgumentParser:
+    return _parser("mix", _MIX_DOC, "VOC_92_mix_label")
+
+
+def cross_label_parser() -> argparse.ArgumentParser:
+    parser = _parser("cross", _CROSS_DOC, "VOC_92_cross_label")
+    parser.add_argument("--warmup", type=int, default=0)
+    parser.add_argument("--prototypes_resume", type=str, default="")
     return parser
 
 
@@ -40,16 +67,24 @@ def ori_pseudo_main(argv=None) -> None:
     print(run_training("ori", ori_pseudo_parser().parse_args(argv)))
 
 
+def mix_label_main(argv=None) -> None:
+    print(run_training("mix", mix_label_parser().parse_args(argv)))
+
+
+def cross_label_main(argv=None) -> None:
+    print(run_training("cross", cross_label_parser().parse_args(argv)))
+
+
+_MAINS = {"ori": ori_pseudo_main, "mix": mix_label_main, "cross": cross_label_main}
+
+
 def main(argv=None) -> None:
-    """``<strategy> [flags]``; the strategy is ``ori``."""
+    """``<strategy> [flags]``; the strategy is ``ori``, ``mix`` or ``cross``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    if not argv or argv[0] not in ("ori", "mix", "cross"):
-        raise SystemExit("usage: python -m css_tpu_torch.cli.entries ori [flags] "
-                         "(ori --help lists them)")
-    if argv[0] != "ori":
-        raise NotImplementedError(f"strategy {argv[0]!r} is not ported to css_tpu_torch yet "
-                                  "(item 12)")
-    ori_pseudo_main(argv[1:])
+    if not argv or argv[0] not in _MAINS:
+        raise SystemExit("usage: python -m css_tpu_torch.cli.entries {ori,mix,cross} [flags] "
+                         "(<strategy> --help lists them)")
+    _MAINS[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

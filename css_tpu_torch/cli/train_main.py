@@ -1,15 +1,32 @@
-"""Training driver behind the port's ``ori`` entry point, counterpart of
-``css_tpu/cli/train_main.py`` on one device.
+"""Training driver behind the port's entry points (strategies ``ori``,
+``mix`` and ``cross``), counterpart of ``css_tpu/cli/train_main.py`` on one
+device.
 
 Each epoch pairs every labeled batch with the next batch of an endless
 unlabeled stream.  Host threads decode the batches into numpy canvases
 (``data/loader.py``); the canvases are copied to the device from pinned
 memory on a side stream, one batch ahead of the step that consumes them.
-After each epoch the EMA teacher is evaluated on the validation split (every
-epoch, as ``ori`` does), ``best_model`` is saved when the mIoU is at least
-the best so far, and the rolling ``last_model`` is stamped with the best
-mIoU.  The step's losses stay on the device until eval time, so the steps
-between evals run without a host synchronisation.
+After an epoch the EMA teacher is evaluated on the validation split,
+``best_model`` is saved when the mIoU is at least the best so far, and the
+rolling ``last_model`` is stamped with the best mIoU.  The step's losses stay
+on the device until eval time, so the steps between evals run without a host
+synchronisation.
+
+What the strategies do differently, as the JAX driver does:
+
+* ``ori`` evaluates every epoch, reads its thresholds from the YAML (a flag
+  given overrides it; ``--temp`` sets ``Loss.temp``) and weights the
+  contrastive loss by 1;
+* ``mix`` and ``cross`` take their thresholds from the flags, with the
+  reference scripts' defaults (strong 0.8, weak 0.7, unsupervised 0.97;
+  ``--temp``, default 0.5, is the representation-space label temperature
+  ``Loss.rep_temp``), weight the contrastive loss by the per-epoch
+  ``Ramp_Scheduler`` ramp-down (``--sche``, on by default; 1 when off), and
+  evaluate only every 20th epoch, in the last 50 epochs, at the last epoch
+  and when the run ends (a time-only log line otherwise);
+* ``cross`` supervises with the representation-space labels from epoch
+  ``--warmup`` on, and ``--prototypes_resume`` seeds its prototypes from
+  another run's checkpoint.
 
 Random draws are functions of counters, not of a run's history: step ``s``
 draws from a generator seeded by ``(Seed + 1, s)``, so a resumed run draws
@@ -17,9 +34,9 @@ for step ``s`` what an uninterrupted run draws; eval ``e`` (the epoch) crops
 batch ``b`` with a generator seeded by ``(Seed, e, b)``.
 
 What the JAX driver supports and the port does not yet is refused by name
-(``NotImplementedError``), never run as something else: strategies ``mix``
-and ``cross``, OHEM, the deep stem, the fused forward, remat, the uint8
-augmentation law, other negative and mixing modes, and more than one device.
+(``NotImplementedError``), never run as something else: OHEM, the deep
+stem, the fused forward, remat, the uint8 augmentation law, other negative
+modes, and more than one device.
 """
 
 from __future__ import annotations
@@ -37,10 +54,12 @@ from css_tpu_torch.models.convert import load_torchvision_backbone
 from css_tpu_torch.models.deeplabv3 import build_model
 from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet, to_channel_first,
                                        to_channel_last)
-from css_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from css_tpu_torch.train.checkpoint import load_prototypes, restore_checkpoint, save_checkpoint
 from css_tpu_torch.train.draws import sample_augment_draws, sample_step_draws
+from css_tpu_torch.train.schedulers import rampdown_value
 from css_tpu_torch.train.state import create_train_state
-from css_tpu_torch.train.train_step import StepConfig, make_eval_step, make_train_step, rep_hw
+from css_tpu_torch.train.train_step import (STRATEGIES, StepConfig, make_eval_step,
+                                            make_train_step, rep_hw)
 from css_tpu_torch.utils import ConfusionMatrix, Logger, ScalarWriter
 from css_tpu_torch.utils.preempt import PreemptionGuard
 from css_tpu_torch.utils.profiling import StepTimer, maybe_profile
@@ -77,7 +96,7 @@ def add_common_args(parser, default_job: str):
     return parser
 
 
-def _refuse_unported(cfg, strategy: str, args) -> None:
+def _refuse_unported(cfg, args) -> None:
     """Raises NotImplementedError naming the first setting the port cannot
     run yet, with its item in ROADMAP.md's Queue 1."""
     crop = cfg.require("Dataset.crop_size")
@@ -87,16 +106,13 @@ def _refuse_unported(cfg, strategy: str, args) -> None:
     remat = cfg.get("Network.remat", crop[0] * crop[1] > 512 * 512)
     quantize = cfg.get("Training_Setting.aug_quantize", False)
     negative_mode = cfg.get("Loss.negative_mode", "sampled_pallas")
-    mix_mode = cfg.get("Dataset.mix_mode", "cutmix")
     checks = [   # (setting, value, ported, queue item)
-        ("strategy", strategy, strategy == "ori", 12),
         ("Loss.sup_loss", sup_loss, sup_loss == "ce", 13),
         ("Network.backbone", backbone, backbone != "resnet101_stem", 13),
         ("Training_Setting.fused_forward", fused, not fused, 13),
         ("Network.remat", remat, not remat, 13),
         ("Training_Setting.aug_quantize", quantize, not quantize, 15),
         ("Loss.negative_mode", negative_mode, negative_mode == "sampled_pallas", 15),
-        ("Dataset.mix_mode", mix_mode, mix_mode == "cutmix", 12),
         ("--num_devices", args.num_devices, args.num_devices in (None, 1), 14),
     ]
     for name, value, ported, item in checks:
@@ -105,14 +121,23 @@ def _refuse_unported(cfg, strategy: str, args) -> None:
                 f"{name}={value!r} is not ported to css_tpu_torch yet (item {item})")
 
 
-def _apply_cli_shadows(cfg, args) -> None:
-    """``ori`` reads its thresholds from the YAML; flags given override them."""
-    for flag, key in [(args.strong_threshold, "Loss.strong_threshold"),
-                      (args.weak_threshold, "Loss.weak_threshold"),
-                      (args.un_threshold, "Loss.un_threshold"),
-                      (args.temp, "Loss.temp")]:
-        if flag is not None:
-            cfg.set(key, flag)
+def _apply_cli_shadows(cfg, args, strategy: str) -> None:
+    """``ori`` reads its thresholds from the YAML and flags given override
+    them; ``mix`` and ``cross`` take them from the flags, with the reference
+    scripts' defaults, and ``--temp`` is their ``Loss.rep_temp``."""
+    if strategy in ("mix", "cross"):
+        for flag, key, default in [(args.strong_threshold, "Loss.strong_threshold", 0.8),
+                                   (args.weak_threshold, "Loss.weak_threshold", 0.7),
+                                   (args.un_threshold, "Loss.un_threshold", 0.97),
+                                   (args.temp, "Loss.rep_temp", 0.5)]:
+            cfg.set(key, default if flag is None else flag)
+    else:
+        for flag, key in [(args.strong_threshold, "Loss.strong_threshold"),
+                          (args.weak_threshold, "Loss.weak_threshold"),
+                          (args.un_threshold, "Loss.un_threshold"),
+                          (args.temp, "Loss.temp")]:
+            if flag is not None:
+                cfg.set(key, flag)
     if args.data_dir:
         cfg.set("Dataset.data_dir", args.data_dir)
     if args.txt_dir:
@@ -121,7 +146,7 @@ def _apply_cli_shadows(cfg, args) -> None:
         cfg.set("Dataset.name", "Synthetic")
 
 
-def _build_state_and_steps(cfg, args, device):
+def _build_state_and_steps(cfg, args, device, strategy: str = "ori"):
     num_classes = cfg.require("Network.num_class")
     output_dim = cfg.get("Network.output_dim", 256)
     model = build_model(num_classes, output_dim, cfg.get("Network.backbone", "resnet101"),
@@ -143,11 +168,13 @@ def _build_state_and_steps(cfg, args, device):
         num_classes=num_classes,
         crop_hw=tuple(cfg.require("Dataset.crop_size")),
         scale_range=tuple(cfg.require("Dataset.scale_size")),
+        strategy=strategy,
         mix_mode=cfg.get("Dataset.mix_mode", "cutmix"),
         un_threshold=cfg.get("Loss.un_threshold", 0.97),
         weak_threshold=cfg.get("Loss.weak_threshold", 0.7),
         strong_threshold=cfg.get("Loss.strong_threshold", 0.97),
         temp=cfg.get("Loss.temp", 0.5),
+        rep_temp=cfg.get("Loss.rep_temp", cfg.get("Loss.temp", 0.5)),
         num_queries=cfg.get("Loss.num_queries", 256),
         num_negatives=cfg.get("Loss.num_negatives", 512),
         proto_alpha=cfg.get("Loss.alpha", 0.99),
@@ -251,13 +278,27 @@ def _evaluate(eval_step, test_loader, crop, num_classes: int, seed: int, eval_in
     return cm
 
 
+def _contrast_weight(cfg, args, strategy: str, epoch: int) -> float:
+    """1 for ``ori``; the ``Ramp_Scheduler`` ramp-down at ``epoch`` for
+    ``mix`` and ``cross`` when ``--sche`` is on, else 1."""
+    if strategy == "ori" or not args.sche:
+        return 1.0
+    return rampdown_value(epoch, cfg.get("Ramp_Scheduler.begin_epoch", 0),
+                          cfg.get("Ramp_Scheduler.max_epoch", 200),
+                          cfg.get("Ramp_Scheduler.max_value", 1.0),
+                          cfg.get("Ramp_Scheduler.min_value", 0.0),
+                          cfg.get("Ramp_Scheduler.ramp_mult", -5.0))
+
+
 def run_training(strategy: str, args) -> dict:
     """Trains ``strategy`` as ``args`` (the entry point's flags) say; returns
     ``{"best_miou", "steps", "preempted", "steps_per_sec"}``."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r} (one of {STRATEGIES})")
     device = resolve_device(args.device)
     cfg = load_config(args.config)
-    _refuse_unported(cfg, strategy, args)
-    _apply_cli_shadows(cfg, args)
+    _refuse_unported(cfg, args)
+    _apply_cli_shadows(cfg, args, strategy)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
 
@@ -272,7 +313,8 @@ def run_training(strategy: str, args) -> dict:
     try:
         dump_config(cfg, save_dir)
         log.info(f"device={device} strategy={strategy} batch={batch_size}+{batch_size}")
-        state, step_cfg, train_step, eval_step = _build_state_and_steps(cfg, args, device)
+        state, step_cfg, train_step, eval_step = _build_state_and_steps(cfg, args, device,
+                                                                        strategy)
         loaders = train_l, train_u, test_loader = _make_loaders(cfg, args, batch_size)
         if len(train_l) == 0:
             # drop_last leaves no batch: the epoch loop would run no step
@@ -292,6 +334,14 @@ def run_training(strategy: str, args) -> dict:
                          f"step {state.step}")
             else:
                 log.info(f"WARNING --resume {args.resume} does not exist; starting afresh")
+        proto_resume = getattr(args, "prototypes_resume", "")
+        if proto_resume:
+            if os.path.exists(proto_resume):
+                state = load_prototypes(proto_resume, state)
+                log.info(f"prototypes seeded from {proto_resume}")
+            else:
+                log.info(f"WARNING --prototypes_resume {proto_resume} does not exist; ignored")
+        warmup = getattr(args, "warmup", 0)
 
         h, w = rep_hw(step_cfg.crop_hw)
         rep_pixels = 2 * batch_size * h * w
@@ -301,11 +351,13 @@ def run_training(strategy: str, args) -> dict:
         done = preempted = False
         for epoch in range(start_epoch, total_epoch):
             train_l.set_epoch(epoch)
+            weight = _contrast_weight(cfg, args, strategy, epoch)
+            use_rep = strategy == "cross" and epoch >= warmup
             with maybe_profile(args.profile_dir, epoch == start_epoch):
                 for batch in _device_prefetch(_epoch_batches(train_l, u_iter), device):
                     draws = sample_step_draws(_generator(device, seed + 1, state.step),
                                               step_cfg, batch_size, batch_size, rep_pixels)
-                    state, metrics = train_step(state, batch, draws, 1.0)  # ori: weight 1
+                    state, metrics = train_step(state, batch, draws, weight, use_rep)
                     timer.tick()
                     if args.max_steps and state.step >= args.max_steps:
                         done = True
@@ -321,6 +373,10 @@ def run_training(strategy: str, args) -> dict:
                 save_checkpoint(os.path.join(save_dir, "last_model"), state, epoch, best_miou)
                 break
 
+            if not (strategy == "ori" or epoch % 20 == 0 or epoch > total_epoch - 50 or done
+                    or epoch == total_epoch - 1):
+                log.info(f"Epoch:{epoch} * Time {time.asctime()} {timer.summary()}")
+                continue
             miou = _evaluate(eval_step, test_loader, step_cfg.crop_hw, step_cfg.num_classes,
                              seed, epoch, device).miou
             best_miou = max(best_miou, miou)

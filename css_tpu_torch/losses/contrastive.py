@@ -27,10 +27,11 @@ import torch.nn.functional as F
 
 from css_tpu_torch.ops.kernels.contrastive_kernels import weighted_exp_softsum_stochastic
 
-__all__ = ["prototype_contrastive_loss", "update_prototypes", "grouped_random_order"]
+__all__ = ["prototype_contrastive_loss", "update_prototypes", "grouped_random_order",
+           "l2_normalize"]
 
 
-def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(torch.clamp_min(torch.sum(x * x, dim=-1, keepdim=True), eps))
 
 
@@ -101,14 +102,14 @@ def prototype_contrastive_loss(
     member = (onehot_flat.amax(dim=-1) > 0) & (mask.reshape(n) > 0)
 
     new_protos, _ = update_prototypes(rep_ng, cls_id, member, prototypes, alpha)
-    protos_n = _l2_normalize(new_protos)
+    protos_n = l2_normalize(new_protos)
 
     prob_at_cls = torch.sum(onehot_flat * prob.reshape(n, num_classes).detach(), dim=-1)
     hard = member & (prob_at_cls < strong_threshold)
     order_hard, counts_hard, off_hard = grouped_random_order(cls_id, hard, tie, num_classes)
 
     counts_all = _class_onehot(cls_id, member, num_classes).sum(0)
-    rep_table = _l2_normalize(rep_ng).to(torch.bfloat16)     # [N, D] no grad
+    rep_table = l2_normalize(rep_ng).to(torch.bfloat16)      # [N, D] no grad
     local_valid = counts_all > 0
     valid_num = local_valid.sum()
 
@@ -131,7 +132,7 @@ def prototype_contrastive_loss(
 
     total = rep_flat.new_zeros(())
     for c in range(num_classes):
-        a = _l2_normalize(anchors[c])
+        a = l2_normalize(anchors[c])
         pos = (a @ protos_n[c]) / temp                        # [Q]
         lam = num_negatives * p_over_cnt[c][masked_cls]      # [N]
         neg_sum = weighted_exp_softsum_stochastic(a, rep_table, lam, 1.0 / temp, u[c])

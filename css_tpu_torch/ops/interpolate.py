@@ -5,7 +5,8 @@
   in the input dtype;
 * ``nearest_resize`` — the ``torch`` index convention,
   ``src = floor(dst * in / out)``, which is ``F.interpolate(mode='nearest')``,
-  over HW / NHW / NHWC.
+  or the ``pil`` one (PIL's ``Image.NEAREST``, half-pixel centres),
+  ``src = floor((dst + 0.5) * in / out)``, over HW / NHW / NHWC.
 """
 
 from __future__ import annotations
@@ -26,16 +27,20 @@ def bilinear_resize(x: torch.Tensor, out_hw, align_corners: bool = True) -> torc
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def _nearest_index(in_size: int, out_size: int, device) -> torch.Tensor:
+_CENTRE = {"torch": 0.0, "pil": 0.5}
+
+
+def _nearest_index(in_size: int, out_size: int, convention: str, device) -> torch.Tensor:
     # float64, as the reference computes its static index table
-    idx = torch.floor(torch.arange(out_size, dtype=torch.float64, device=device)
-                      * in_size / out_size)
-    return idx.clamp(0, in_size - 1).long()
+    pos = torch.arange(out_size, dtype=torch.float64, device=device) + _CENTRE[convention]
+    return torch.floor(pos * in_size / out_size).clamp(0, in_size - 1).long()
 
 
-def nearest_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Nearest-neighbour resize over the two spatial dims (HW, NHW or NHWC),
-    torch convention."""
+def nearest_resize(x: torch.Tensor, out_hw, convention: str = "torch") -> torch.Tensor:
+    """Nearest-neighbour resize over the two spatial dims (HW, NHW or NHWC);
+    ``convention`` is ``torch`` or ``pil``."""
+    if convention not in _CENTRE:
+        raise ValueError(f"unknown nearest convention: {convention}")
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     if x.ndim in (3, 4):
         h_ax, w_ax = 1, 2
@@ -46,5 +51,5 @@ def nearest_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
     h, w = x.shape[h_ax], x.shape[w_ax]
     if (h, w) == (out_h, out_w):
         return x
-    x = torch.index_select(x, h_ax, _nearest_index(h, out_h, x.device))
-    return torch.index_select(x, w_ax, _nearest_index(w, out_w, x.device))
+    x = torch.index_select(x, h_ax, _nearest_index(h, out_h, convention, x.device))
+    return torch.index_select(x, w_ax, _nearest_index(w, out_w, convention, x.device))

@@ -1,18 +1,24 @@
-"""CutMix on one device, counterpart of ``css_tpu/ops/mixing.py``.
+"""CutOut, CutMix and ClassMix on one device, counterpart of
+``css_tpu/ops/mixing.py``.
 
 The box geometry is the reference's ``generate_cutout_mask``: area H*W/2,
 width drawn in [W/2 + 1, W), height round(area / width), corner uniform.
-The partner of image i is image (i + 1) mod B (``roll(-1)``).  The draws
-(width, and the uniforms of the corner) arrive as tensors.
+ClassMix keeps a random half of the labels present in each image's first
+label map (-1 counts as a label of its own, slot 0).  The partner of image i
+is image (i + 1) mod B (``roll(-1)``).  The draws arrive as tensors: the box
+width and the uniforms of its corner (cutout, cutmix), or one uniform score
+per label slot and image (classmix).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["cutout_box_mask", "mix_batch"]
+__all__ = ["MIX_MODES", "cutout_box_mask", "class_half_mask", "mix_batch"]
+
+MIX_MODES = ("none", "cutout", "cutmix", "classmix")
 
 
 def cutout_box_mask(hw: Tuple[int, int], cut_w: torch.Tensor, u_x: torch.Tensor,
@@ -31,11 +37,45 @@ def cutout_box_mask(hw: Tuple[int, int], cut_w: torch.Tensor, u_x: torch.Tensor,
     return torch.where(inside, 0.0, 1.0)
 
 
+def class_half_mask(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """[B, H, W] f32 masks, 1 on the pixels of a random half of each image's
+    present labels.  ``labels`` [B, H, W] int in [-1, C); ``scores`` [B, C+1]
+    uniforms, slot 0 for label -1.  The present slots are ranked by score and
+    those of rank < n_present // 2 kept."""
+    slot = (labels + 1).reshape(scores.shape[0], -1).long()              # [B, HW]
+    present = scores.new_zeros(scores.shape).scatter_(1, slot, 1.0) > 0
+    n_present = present.sum(dim=1, keepdim=True)
+    order = torch.argsort(torch.where(present, scores, torch.inf), dim=1, stable=True)
+    rank = torch.argsort(order, dim=1)
+    selected = present & (rank < n_present // 2)
+    return torch.gather(selected.float(), 1, slot).reshape(labels.shape)
+
+
 def mix_batch(images: torch.Tensor, labels: torch.Tensor, confs: torch.Tensor, *,
-              cut_w: torch.Tensor, u_x: torch.Tensor, u_y: torch.Tensor):
-    """CutMix each image with its partner; ``images`` [B, 3, H, W],
-    ``labels`` [B, K, H, W] int, ``confs`` [B, L, H, W]."""
-    mask = cutout_box_mask(images.shape[2:], cut_w, u_x, u_y)[:, None]
+              mode: str = "cutmix", cut_w: Optional[torch.Tensor] = None,
+              u_x: Optional[torch.Tensor] = None, u_y: Optional[torch.Tensor] = None,
+              scores: Optional[torch.Tensor] = None):
+    """Mixes ``images`` [B, 3, H, W], ``labels`` [B, K, H, W] int and
+    ``confs`` [B, L, H, W] as ``mode`` says:
+
+    * none: unchanged;
+    * cutout: image and confidences zeroed in the box, and only the first
+      label map set to -1 there;
+    * cutmix: the box taken from the partner image;
+    * classmix: the pixels of a random half of the first label map's classes
+      kept, the rest taken from the partner image.
+    """
+    if mode == "none":
+        return images, labels, confs
+    if mode in ("cutout", "cutmix"):
+        mask = cutout_box_mask(images.shape[2:], cut_w, u_x, u_y)[:, None]
+    elif mode == "classmix":
+        mask = class_half_mask(labels[:, 0], scores)[:, None]
+    else:
+        raise ValueError(f"unknown mix mode {mode}")
+    if mode == "cutout":
+        first = torch.where(mask[:, 0] > 0, labels[:, 0], torch.full_like(labels[:, 0], -1))
+        return images * mask, torch.cat([first[:, None], labels[:, 1:]], dim=1), confs * mask
     p_images, p_labels, p_confs = (torch.roll(t, -1, dims=0) for t in (images, labels, confs))
     im = mask.to(labels.dtype)
     return (images * mask + p_images * (1.0 - mask),

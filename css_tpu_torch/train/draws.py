@@ -9,8 +9,9 @@ draws.  ``StepDraws`` gathers them; ``sample_step_draws`` fills one from a
 Per ``batch_transform`` call (``AugmentDraws``, one entry per image): the
 scale ratio and the crop-offset uniforms, and for the photometric calls the
 jitter flag, the four jitter factors, the jitter op order, the blur flag and
-sigma, and the flip flag.  CutMix (``MixDraws``): box width and corner
-uniforms.  Contrastive loss (``ContrastDraws``): 24-bit tie-break keys,
+sigma, and the flip flag.  Mixing (``MixDraws``): box width and corner
+uniforms for CutOut and CutMix, per-slot scores for ClassMix, nothing for
+``none``.  Contrastive loss (``ContrastDraws``): 24-bit tie-break keys,
 anchor uniforms and the uniforms of the thinned multiplicities.
 """
 
@@ -22,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["AugmentDraws", "MixDraws", "ContrastDraws", "StepDraws",
-           "sample_augment_draws", "sample_step_draws"]
+           "sample_augment_draws", "sample_mix_draws", "sample_step_draws"]
 
 BRIGHTNESS = CONTRAST = SATURATION = (0.75, 1.25)
 HUE = (-0.25, 0.25)
@@ -51,9 +52,10 @@ class AugmentDraws(_Draws):
 
 @dataclasses.dataclass
 class MixDraws(_Draws):
-    cut_w: torch.Tensor   # [B] int64 box widths in [W/2 + 1, W)
-    u_x: torch.Tensor     # [B] f32 corner uniforms
-    u_y: torch.Tensor
+    cut_w: Optional[torch.Tensor] = None    # [B] int64 box widths in [W/2 + 1, W)
+    u_x: Optional[torch.Tensor] = None      # [B] f32 corner uniforms
+    u_y: Optional[torch.Tensor] = None
+    scores: Optional[torch.Tensor] = None   # [B, C + 1] f32 ClassMix slot scores
 
 
 @dataclasses.dataclass
@@ -68,7 +70,7 @@ class StepDraws:
     l_aug: AugmentDraws    # labeled batch: scale/crop + photometric + flip
     u_crop: AugmentDraws   # unlabeled base crop at scale 1
     t_crop: AugmentDraws   # pseudo-labeled batch: scale/crop at the config scale
-    u_aug: AugmentDraws    # after CutMix: photometric + flip at scale 1
+    u_aug: AugmentDraws    # after mixing: photometric + flip at scale 1
     mix: MixDraws
     contrast: ContrastDraws
 
@@ -92,22 +94,32 @@ def sample_augment_draws(g: torch.Generator, b: int, scale_range: Tuple[float, f
     return draws
 
 
+def sample_mix_draws(g: torch.Generator, mode: str, b: int, crop_w: int,
+                     num_classes: int) -> MixDraws:
+    """What ``mix_batch(mode=mode)`` consumes for ``b`` images."""
+    if mode in ("cutout", "cutmix"):
+        return MixDraws(
+            cut_w=torch.randint(int(crop_w / 2 + 1), crop_w, (b,), generator=g, device=g.device),
+            u_x=_uniform(g, (b,)), u_y=_uniform(g, (b,)))
+    if mode == "classmix":
+        return MixDraws(scores=_uniform(g, (b, num_classes + 1)))
+    return MixDraws()
+
+
 def sample_step_draws(generator: torch.Generator, cfg, l_batch: int, u_batch: int,
                       rep_pixels: int) -> StepDraws:
     """Draws for one step of ``cfg`` (a ``StepConfig``): ``l_batch`` labeled
     and ``u_batch`` unlabeled images, ``rep_pixels`` = pixels of the
-    representation map over both batches (the contrastive table's N)."""
+    representation map over both batches (the contrastive table's N).  The
+    strategies draw alike: ``mix`` and ``cross`` add only a deterministic
+    teacher forward."""
     g = generator
-    ch, cw = cfg.crop_hw
-    width_lo = int(cw / 2 + 1)
     return StepDraws(
         l_aug=sample_augment_draws(g, l_batch, cfg.scale_range, True),
         u_crop=sample_augment_draws(g, u_batch, (1.0, 1.0), False),
         t_crop=sample_augment_draws(g, u_batch, cfg.scale_range, False),
         u_aug=sample_augment_draws(g, u_batch, (1.0, 1.0), True),
-        mix=MixDraws(
-            cut_w=torch.randint(width_lo, cw, (u_batch,), generator=g, device=g.device),
-            u_x=_uniform(g, (u_batch,)), u_y=_uniform(g, (u_batch,))),
+        mix=sample_mix_draws(g, cfg.mix_mode, u_batch, cfg.crop_hw[1], cfg.num_classes),
         contrast=ContrastDraws(
             tie=torch.randint(0, 1 << 24, (rep_pixels,), generator=g, device=g.device,
                               dtype=torch.int32),

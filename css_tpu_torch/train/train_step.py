@@ -1,13 +1,27 @@
-"""The semi-supervised train step, strategy ``ori`` on one device,
-counterpart of ``css_tpu/train/train_step.py::make_train_step``.
+"""The semi-supervised train step on one device, strategies ``ori``, ``mix``
+and ``cross``, counterpart of ``css_tpu/train/train_step.py::make_train_step``.
 
 Dataflow, in the reference's module-call order:
 
   augment the labeled batch -> base-crop the unlabeled batch -> teacher
   forward (train mode, no grad) -> pseudo-labels and confidences -> scale /
-  crop, CutMix, photometric + flip of the unlabeled batch -> student forward
+  crop, mixing, photometric + flip of the unlabeled batch -> student forward
   on labeled, then on unlabeled -> CE + attention-threshold + prototype
   contrastive losses -> backward -> SGD (nesterov, poly LR) -> teacher EMA.
+
+The strategies differ in the pseudo-labels and in the probability that
+mines the contrastive anchors:
+
+* ``ori``: the teacher sees the unlabeled batch; logit-space labels; the
+  student's softmax mines the anchors;
+* ``mix``: the teacher sees the labeled batch, then the unlabeled one (its
+  BN running stats advance twice, in that order); a pixel keeps its
+  logit-space label where the representation-space label (the nearest
+  prototype by cosine) agrees, and is ignored elsewhere; the softmax of the
+  student's prototype similarities mines the anchors;
+* ``cross``: as ``mix``, but both label maps survive, and the unsupervised
+  target switches to the representation-space labels when
+  ``use_rep_labels`` is true.
 
 Mixed precision mirrors the JAX casts explicitly (no autocast): the model
 casts conv weights and activations to its ``dtype``; BatchNorm statistics,
@@ -23,34 +37,37 @@ from typing import Dict, Tuple
 
 import torch
 
-from css_tpu_torch.losses.contrastive import prototype_contrastive_loss
+from css_tpu_torch.losses.contrastive import l2_normalize, prototype_contrastive_loss
 from css_tpu_torch.losses.cross_entropy import cross_entropy
 from css_tpu_torch.losses.threshold import attention_threshold_loss
 from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet,
                                        to_channel_first, to_channel_last)
 from css_tpu_torch.ops.interpolate import bilinear_resize, nearest_resize
-from css_tpu_torch.ops.mixing import mix_batch
-from css_tpu_torch.ops.onehot import label_onehot
+from css_tpu_torch.ops.mixing import MIX_MODES, mix_batch
+from css_tpu_torch.ops.onehot import label_onehot, label_onehot_ignore
 from css_tpu_torch.train.draws import StepDraws
 from css_tpu_torch.train.state import TrainState, ema_update
 
-__all__ = ["StepConfig", "make_train_step", "make_eval_step", "rep_hw"]
+__all__ = ["StepConfig", "STRATEGIES", "make_train_step", "make_eval_step", "rep_hw"]
+
+STRATEGIES = ("ori", "mix", "cross")
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     """Hyper-parameters of the train step (the JAX ``StepConfig`` fields the
-    ported path reads; the others wait for their slices)."""
+    ported paths read; the others wait for their slices)."""
 
     num_classes: int
     crop_hw: Tuple[int, int]
     scale_range: Tuple[float, float]
-    strategy: str = "ori"
-    mix_mode: str = "cutmix"
+    strategy: str = "ori"                     # ori | mix | cross
+    mix_mode: str = "cutmix"                  # none | cutout | cutmix | classmix
     un_threshold: float = 0.97
     weak_threshold: float = 0.7
     strong_threshold: float = 0.97
-    temp: float = 0.5
+    temp: float = 0.5                         # contrastive temperature
+    rep_temp: float = 0.5                     # representation-space label temperature
     num_queries: int = 256
     num_negatives: int = 512
     proto_alpha: float = 0.99
@@ -81,42 +98,71 @@ def _to01_cf(images: torch.Tensor) -> torch.Tensor:
     return to_channel_first(images)
 
 
+def _rep_space_probs(rep: torch.Tensor, prototypes: torch.Tensor) -> torch.Tensor:
+    """[B, h, w, C] f32 cosine similarities of each pixel's representation
+    to the prototypes (callers divide by their temperature and softmax).
+    All-zero prototypes give similarity 0."""
+    return torch.einsum("bhwd,cd->bhwc", l2_normalize(rep.float()),
+                        l2_normalize(prototypes.float()))
+
+
 def make_train_step(cfg: StepConfig):
-    """Build ``step(state, batch, draws, contrast_weight) -> (state, metrics)``.
+    """Build ``step(state, batch, draws, contrast_weight, use_rep_labels=False)
+    -> (state, metrics)``.
 
     ``batch`` keys: ``l_image`` [B, H, W, 3] float [0, 1] (or uint8),
     ``l_label`` [B, H, W] int (255 = ignore), ``l_valid_hw`` [B, 2],
-    ``u_image`` [B, Hu, Wu, 3], ``u_valid_hw`` [B, 2].
+    ``u_image`` [B, Hu, Wu, 3], ``u_valid_hw`` [B, 2].  ``contrast_weight``
+    scales the contrastive loss (the driver's ramp; 1.0 for ``ori``);
+    ``use_rep_labels`` matters for ``cross`` only.
     """
-    unsupported = {
-        "strategy": (cfg.strategy, "ori"),
-        "mix_mode": (cfg.mix_mode, "cutmix"),
-        "negative_mode": (cfg.negative_mode, "sampled_pallas"),
-    }
-    for name, (got, want) in unsupported.items():
-        if got != want:
-            raise NotImplementedError(f"{name}={got!r} is not ported yet (the port has {want!r})")
+    if cfg.strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {cfg.strategy!r} (one of {STRATEGIES})")
+    if cfg.mix_mode not in MIX_MODES:
+        raise ValueError(f"unknown mix mode {cfg.mix_mode!r} (one of {MIX_MODES})")
+    if cfg.negative_mode != "sampled_pallas":
+        raise NotImplementedError(f"negative_mode={cfg.negative_mode!r} is not ported yet "
+                                  "(the port has 'sampled_pallas')")
     ch, cw = cfg.crop_hw
     c = cfg.num_classes
 
-    def pseudo_label_phase(state: TrainState, u_img01: torch.Tensor, draws: StepDraws):
+    def pseudo_labels(state: TrainState, l_img: torch.Tensor, u_img: torch.Tensor):
+        """The teacher's labels [B, K, H, W] and confidences [B, L, H, W] of
+        the unlabeled batch at crop size."""
+        state.teacher.train()
+        if cfg.strategy != "ori":
+            state.teacher(l_img)      # advances the teacher's BN stats, labeled first
+        pred_u_t, rep_u_t = state.teacher(u_img)
+        probs = torch.softmax(bilinear_resize(pred_u_t, (ch, cw), align_corners=True), dim=-1)
+        conf_cls, lab_cls = torch.max(probs, dim=-1)
+        if cfg.strategy == "ori":
+            return lab_cls[:, None], conf_cls[:, None]
+        sim = bilinear_resize(_rep_space_probs(rep_u_t, state.prototypes), (ch, cw),
+                              align_corners=True)
+        conf_rep, lab_rep = torch.max(torch.softmax(sim / cfg.rep_temp, dim=-1), dim=-1)
+        confs = torch.stack([conf_cls, conf_rep], dim=1)
+        if cfg.strategy == "mix":
+            agreed = torch.where(lab_cls == lab_rep, lab_cls, torch.full_like(lab_cls, -1))
+            return agreed[:, None], confs
+        return torch.stack([lab_cls, lab_rep], dim=1), confs
+
+    def pseudo_label_phase(state: TrainState, l_img: torch.Tensor, u_img01: torch.Tensor,
+                           draws: StepDraws):
         """No-grad teacher + the unlabeled augmentation chain; returns the
         normalized NHWC unlabeled batch, its labels and confidences."""
-        state.teacher.train()
-        pred_u_t, _ = state.teacher(to_channel_last(normalize_imagenet(u_img01)))
-        probs = torch.softmax(bilinear_resize(pred_u_t, (ch, cw), align_corners=True), dim=-1)
-        labels = torch.argmax(probs, dim=-1)[:, None]           # [B, 1, H, W]
-        confs = torch.amax(probs, dim=-1)[:, None]
+        labels, confs = pseudo_labels(state, l_img, to_channel_last(normalize_imagenet(u_img01)))
         full_hw = torch.tensor([ch, cw], device=u_img01.device).expand(u_img01.shape[0], 2)
         img01, labels, confs = batch_transform(u_img01, labels, confs, full_hw, (ch, cw),
                                                **draws.t_crop.as_kwargs())
-        img01, labels, confs = mix_batch(img01, labels, confs, **draws.mix.as_kwargs())
+        img01, labels, confs = mix_batch(img01, labels, confs, mode=cfg.mix_mode,
+                                         **draws.mix.as_kwargs())
         img01, labels, confs = batch_transform(img01, labels, confs, full_hw, (ch, cw),
                                                **draws.u_aug.as_kwargs())
         return to_channel_last(normalize_imagenet(img01)), labels, confs
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: StepDraws,
-             contrast_weight) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+             contrast_weight, use_rep_labels: bool = False
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model = state.model
         with torch.no_grad():
             l_canvas = _to01_cf(batch["l_image"])
@@ -134,8 +180,11 @@ def make_train_step(cfg: StepConfig):
                 u_canvas, torch.zeros((bu, 1, uh, uw), dtype=torch.long, device=u_canvas.device),
                 u_canvas.new_zeros((bu, 1, uh, uw)), batch["u_valid_hw"], (ch, cw),
                 **draws.u_crop.as_kwargs())
-            u_img, u_labels, u_confs = pseudo_label_phase(state, u_img01, draws)
-        unsup_label = u_labels[:, 0]
+            u_img, u_labels, u_confs = pseudo_label_phase(state, l_img, u_img01, draws)
+        # cross switches the unsupervised target to the representation space;
+        # the contrastive labels and the weak mask stay logit-space
+        k = 1 if cfg.strategy == "cross" and use_rep_labels else 0
+        unsup_label, unsup_conf = u_labels[:, k], u_confs[:, k]
         conf_cls = u_confs[:, 0]
 
         # two sequential student forwards: per-half BN statistics, labeled first
@@ -145,19 +194,24 @@ def make_train_step(cfg: StepConfig):
         pred_l_large = bilinear_resize(pred_l, (ch, cw), align_corners=True)
         pred_u_large = bilinear_resize(pred_u, (ch, cw), align_corners=True)
         sup = cross_entropy(pred_l_large, l_label)
-        unsup = attention_threshold_loss(pred_u_large, unsup_label, conf_cls, cfg.un_threshold)
+        unsup = attention_threshold_loss(pred_u_large, unsup_label, unsup_conf, cfg.un_threshold)
 
         if cfg.contrast_enabled:
             hw = (pred_l.shape[1], pred_l.shape[2])
             mask_l = nearest_resize((l_label >= 0).float(), hw)
             mask_u = nearest_resize((conf_cls >= cfg.weak_threshold).float(), hw)
+            onehot_u = label_onehot_ignore if cfg.strategy == "mix" else label_onehot
             label_all = torch.cat([label_onehot(nearest_resize(l_label, hw), c),
-                                   label_onehot(nearest_resize(unsup_label, hw), c)])
-            prob_all = torch.softmax(torch.cat([pred_l, pred_u]).detach(), dim=-1)
+                                   onehot_u(nearest_resize(u_labels[:, 0], hw), c)])
+            rep_all = torch.cat([rep_l, rep_u])
+            if cfg.strategy == "ori":
+                prob_all = torch.softmax(torch.cat([pred_l, pred_u]).detach(), dim=-1)
+            else:   # the prototypes before this step's update
+                prob_all = torch.softmax(
+                    _rep_space_probs(rep_all.detach(), state.prototypes) / cfg.rep_temp, dim=-1)
             contrast, new_protos = prototype_contrastive_loss(
-                torch.cat([rep_l, rep_u]), label_all, torch.cat([mask_l, mask_u]),
-                prob_all, state.prototypes, **draws.contrast.as_kwargs(),
-                num_negatives=cfg.num_negatives, temp=cfg.temp,
+                rep_all, label_all, torch.cat([mask_l, mask_u]), prob_all, state.prototypes,
+                **draws.contrast.as_kwargs(), num_negatives=cfg.num_negatives, temp=cfg.temp,
                 strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha)
         else:
             contrast, new_protos = sup.new_zeros(()), state.prototypes

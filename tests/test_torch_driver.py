@@ -454,9 +454,22 @@ def test_driver_refuses_what_is_not_ported_by_name(tmp_path, key, override, flag
     config = _tiny_yaml(tmp_path, **override)
     args = entries.ori_pseudo_parser().parse_args(
         ["--config", config, "--device", "cpu", "--synthetic", *flags])
-    strategy = "mix" if key == "strategy" else "ori"
-    with pytest.raises(NotImplementedError, match=re.escape(key)):
-        train_main.run_training(strategy, args)
+    if key in ("strategy", "Dataset.mix_mode"):
+        # ported since: mix and cross (with any mix mode) pass the checks,
+        # and what the port cannot run is refused under them as under ori
+        (tmp_path / "remat").mkdir()
+        refused = _tiny_yaml(tmp_path / "remat", **override, **{"Network.remat": True})
+        for strategy in ("mix", "cross"):
+            train_main._refuse_unported(load_config(config), args)
+            with pytest.raises(NotImplementedError, match="Network.remat"):
+                train_main.run_training(strategy, entries.mix_label_parser().parse_args(
+                    ["--config", refused, "--device", "cpu", "--synthetic"]))
+        with pytest.raises(ValueError, match="unknown strategy"):
+            train_main.run_training("bogus", args)
+        assert not (tmp_path / "remat" / "ckpt").exists()
+    else:
+        with pytest.raises(NotImplementedError, match=re.escape(key)):
+            train_main.run_training("ori", args)
     assert not (tmp_path / "ckpt").exists()      # refused before any work
 
 
@@ -478,11 +491,12 @@ def test_contrast_disabled_step_matches_jax():
 def test_entry_point_runs_on_the_card_by_default(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        entries.main(["ori", "--config", _tiny_yaml(tmp_path), "--synthetic"])
+    for strategy in ("ori", "mix", "cross"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entries.main([strategy, "--config", _tiny_yaml(tmp_path), "--synthetic"])
     assert not (tmp_path / "ckpt").exists()
-    with pytest.raises(NotImplementedError, match="strategy 'mix'"):
-        entries.main(["mix", "--config", _tiny_yaml(tmp_path)])
+    with pytest.raises(SystemExit, match="usage"):
+        entries.main(["pseudo", "--config", _tiny_yaml(tmp_path)])
 
 
 def test_module_entry_point_trains_on_the_cpu(tmp_path):

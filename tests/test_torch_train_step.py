@@ -160,7 +160,13 @@ def test_ori_three_step_trajectory_matches_jax():
 
 
 def test_step_refuses_paths_not_ported():
-    with pytest.raises(NotImplementedError, match="strategy"):
-        make_train_step(StepConfig(**CFG, strategy="mix"))
+    for strategy in ("mix", "cross"):       # ported: tests/test_torch_strategies.py
+        for mix_mode in ("none", "cutout", "cutmix", "classmix"):
+            assert callable(make_train_step(StepConfig(**CFG, strategy=strategy,
+                                                       mix_mode=mix_mode)))
+    with pytest.raises(ValueError, match="strategy"):
+        make_train_step(StepConfig(**CFG, strategy="bogus"))
+    with pytest.raises(ValueError, match="mix mode"):
+        make_train_step(StepConfig(**CFG, mix_mode="bogus"))
     with pytest.raises(NotImplementedError, match="negative_mode"):
         make_train_step(StepConfig(**CFG, negative_mode="expected"))
