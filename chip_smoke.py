@@ -15,7 +15,8 @@ exit code, and no result line:
    labeled half), and thinned multiplicities scattered over the whole
    table; then timed, with the L2 flushed before each call, beside the
    plain versions, a library yardstick and the least time the card could
-   take for the same work;
+   take for the same work; then the same, thinned only, at the Cityscapes
+   table (N = 8 x 193^2 = 297,992 rows, a multiple of neither tile);
 4. contrastive: the port's contrastive loss and its gradient at a small
    input on the card (through K1/K2) against the same call on the CPU
    (through the plain versions);
@@ -55,7 +56,26 @@ exit code, and no result line:
    prototypes A saved (bit-equal) and ends at step 6, and each kernel
    launched 21 x 6 times.  It prints the driver's steps/s and ms/step
    (beside the train phase's bare step), eval ms per image, checkpoint
-   seconds, the phase's peak memory, and the loader's ms per batch alone.
+   seconds, the phase's peak memory, and the loader's ms per batch alone;
+9. cityscapes: with every earlier state freed and the peak counter reset,
+   the shipped Cityscapes YAML's step (``css_tpu_torch/config/
+   CityScapes_config_baseline.yaml`` through ``_build_state_and_steps``: 19
+   classes, ResNet-101 OS8, 769x769 crops from a 1024x2048 canvas at scale
+   0.5-2.0, 4 labeled + 4 unlabeled images, OHEM CE at 0.7 keeping at least
+   50,000 pixels per image, the fused labeled + unlabeled forward with
+   grouped BatchNorm, no remat) on a device-resident synthetic batch: 2
+   warm-up + ``--steps`` timed steps; it fails unless every loss is finite,
+   each kernel launched 19 times a step and the peak stays within
+   CITY_PEAK_GIB_LIMIT, and prints ms/step, img/s, peak memory and OHEM's
+   kept pixels and threshold.  Then, in the same run: the step with two
+   passes instead of the fused one (1 warm-up + ``--steps`` timed; both
+   ms/step and their ratio), one ``mix`` step with the fused teacher pass,
+   one ``resnet101_stem`` step with remat on (the default at 769^2), each
+   after a warm-up step with its ms/step and peak, OHEM on the card without
+   a host synchronisation against the CPU, and the ``ori`` entry point on
+   the shipped YAML (``--synthetic --num_labels 8 --total_iter 2
+   --max_steps 2``: 2 steps and an eval) with finite losses, every valid
+   label pixel counted and 38 launches per kernel.
 
 The output ends with one JSON line of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -74,7 +94,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
-Q, D, N = 256, 256, 262_144     # 16 images x 128^2 representation pixels
+Q, D = 256, 256
+N_VOC = 262_144                 # 16 images x 128^2 representation pixels
+N_CITY = 297_992                # 8 images x 193^2 (769^2 crops)
 INV_TEMP = 2.0                  # 1 / temp, temp = 0.5
 NUM_NEGATIVES = 512
 K1_RTOL = 1e-3                  # same bf16 products, f32 sums in another order
@@ -83,6 +105,8 @@ K2_ATOL_FRACTION = 1e-2         # of max |M|
 PEAK_GIB_LIMIT = 33.213         # the step's peak before the live-row compaction
                                 # (33.113 GiB) + 0.1 GiB for the saved compactions
 STRATEGIES_PEAK_GIB_LIMIT = 33.232   # the phase's first reading (33.132 GiB) + 0.1 GiB
+CITY_PEAK_GIB_LIMIT = 37.930    # the fused step's first reading (37.830 GiB) + 0.1 GiB
+CITY_YAML = "CityScapes_config_baseline.yaml"
 
 
 def _smi() -> str:
@@ -141,19 +165,19 @@ def _timed(torch, fn, iters: int, flush, device: bool = True) -> tuple:
     return ms, busy_us / iters / 1e3
 
 
-def _kernel_inputs(torch, ck, g, w_kind: str):
+def _kernel_inputs(torch, ck, g, w_kind: str, n: int):
     dev = "cuda"
     a = torch.nn.functional.normalize(torch.randn(Q, D, device=dev, generator=g), dim=1)
-    r = torch.nn.functional.normalize(torch.randn(N, D, device=dev, generator=g), dim=1)
+    r = torch.nn.functional.normalize(torch.randn(n, D, device=dev, generator=g), dim=1)
     if w_kind == "dead_half":
-        w = torch.rand(N, device=dev, generator=g)
-        w[N // 2:] = 0.0
+        w = torch.rand(n, device=dev, generator=g)
+        w[n // 2:] = 0.0
     else:   # thinned multiplicities around lam, sum(lam) = G, on the labeled half or all
-        lam = torch.rand(N, device=dev, generator=g)
+        lam = torch.rand(n, device=dev, generator=g)
         if w_kind == "thinned":
-            lam[N // 2:] = 0.0
+            lam[n // 2:] = 0.0
         lam *= NUM_NEGATIVES / lam.sum()
-        w = ck.thinned_multiplicities(torch.rand(N, device=dev, generator=g), lam)
+        w = ck.thinned_multiplicities(torch.rand(n, device=dev, generator=g), lam)
     return a.to(torch.bfloat16), r.to(torch.bfloat16), w
 
 
@@ -185,14 +209,21 @@ def _check_compaction(torch, ck, w):
 
 
 def kernel_phase(torch, ck):
-    """Each kernel against its plain version under three weight patterns,
-    then timed; the row kept for the JSON line is the ``thinned`` one, what
-    the main path feeds the kernels."""
+    """Each kernel against its plain version under three weight patterns at
+    the VOC table, and under the thinned one at the Cityscapes table, then
+    timed; the rows kept for the JSON line are the ``thinned`` ones, what the
+    main paths feed the kernels."""
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = _l2_flush(torch)
+    voc = _kernel_shape(torch, ck, g, flush, N_VOC, ("dead_half", "thinned", "scattered"))
+    city = _kernel_shape(torch, ck, g, flush, N_CITY, ("thinned",))
+    return voc, city
+
+
+def _kernel_shape(torch, ck, g, flush, n: int, kinds):
     results = {k: {"max_abs_err": 0.0} for k in ("k1", "k2", "compact")}
-    for kind in ("dead_half", "thinned", "scattered"):
-        a, r, w = _kernel_inputs(torch, ck, g, kind)
+    for kind in kinds:
+        a, r, w = _kernel_inputs(torch, ck, g, kind, n)
         comp, live = _check_compaction(torch, ck, w)
         s = ck.softsum_kernel(a, r, w, INV_TEMP)
         m = ck.softsum_moment_kernel(a, r, w, INV_TEMP)
@@ -221,14 +252,15 @@ def kernel_phase(torch, ck):
                        plain_ms=_timed(torch, plain, 5, flush, False)[0],
                        bound_ms=bounds[name][0], bound_by=bounds[name][1],
                        library_ms=library_ms, max_abs_err=errs[name])
-            print(f"kernel {name} w={kind} live_rows={live}: " + json.dumps(row), flush=True)
+            print(f"kernel {name} N={n} w={kind} live_rows={live}: " + json.dumps(row),
+                  flush=True)
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], errs[name])
             if kind == "thinned":     # what the main path feeds the kernels
                 results[name].update({k: v for k, v in row.items() if k != "max_abs_err"})
         # K1 and K2 alone over a saved compaction, as the step's backward runs K2
         for name, kern in (("k1", ck.softsum_live_kernel), ("k2", ck.softsum_moment_live_kernel)):
             ms, device_ms = _timed(torch, lambda: kern(a, r, *comp, INV_TEMP), 20, flush)
-            print(f"kernel {name}_over_compaction w={kind} live_rows={live}: "
+            print(f"kernel {name}_over_compaction N={n} w={kind} live_rows={live}: "
                   + json.dumps(dict(ms=ms, device_ms=device_ms)), flush=True)
         del a, r, w, s, m, s_ref, m_ref, comp
         torch.cuda.empty_cache()
@@ -275,11 +307,41 @@ def _check_finite(losses, label: str):
             raise RuntimeError(f"{label}: non-finite losses at timed step {i}: {bad}")
 
 
+def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: str):
+    """``warmup`` untimed steps, then ``steps`` timed ones with the launch
+    counters zeroed and the peak reset just before; fails on a non-finite
+    loss or launches other than ``c`` per kernel per step.  Returns (ms per
+    step, peak GiB, losses)."""
+    for _ in range(warmup):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(one_step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [{k: v.item() for k, v in m.items()} for m in losses]
+    for i, m in enumerate(losses):
+        print(f"{label} step {i}: {times[i] * 1e3:.3f} ms " + json.dumps(m), flush=True)
+    _check_finite(losses, label)
+    if any(count != c * steps for count in launches.values()):
+        raise RuntimeError(f"{label}: launches {launches} in {steps} steps, want {c * steps} each")
+    ms = sum(times) / steps * 1e3
+    print(f"{label}: {ms:.3f} ms/step (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"peak memory {peak:.3f} GiB, launches {json.dumps(launches)}", flush=True)
+    return ms, peak, launches
+
+
 def train_phase(torch, ck, steps: int, profile: bool):
     from css_tpu_torch.models.deeplabv3 import build_model
     from css_tpu_torch.train.draws import sample_step_draws
     from css_tpu_torch.train.state import create_train_state
-    from css_tpu_torch.train.train_step import StepConfig, make_train_step, rep_hw
+    from css_tpu_torch.train.train_step import StepConfig, make_train_step
 
     c, crop, bsz = 21, 512, 8
     cfg = StepConfig(num_classes=c, crop_hw=(crop, crop), scale_range=(0.5, 1.5))
@@ -298,47 +360,20 @@ def train_phase(torch, ck, steps: int, profile: bool):
     }
     batch = {k: v.cuda() for k, v in batch.items()}
     g = torch.Generator(device="cuda").manual_seed(1)
-    h, w = rep_hw(cfg.crop_hw)
+    h, w = state.model.output_hw(cfg.crop_hw)
 
     def one_step():
         draws = sample_step_draws(g, cfg, bsz, bsz, 2 * bsz * h * w)
         _, metrics = step(state, batch, draws, 1.0)
         return metrics
 
-    for _ in range(2):
-        metrics = one_step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    ck.reset_launches()
-    losses, times = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(one_step())
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = dict(ck.LAUNCHES)
-
-    for i, m in enumerate(losses):
-        vals = {k: v.item() for k, v in m.items()}
-        print(f"train step {i}: {times[i] * 1e3:.3f} ms " + json.dumps(vals), flush=True)
-        bad = [k for k, v in vals.items() if v != v or abs(v) == float("inf")]
-        if bad:
-            raise RuntimeError(f"non-finite losses at timed step {i}: {bad}")
-    want = c * steps
-    for name, count in launches.items():
-        if count != want:
-            raise RuntimeError(f"{name}: {count} launches in {steps} steps, want {want}")
-    dt = sum(times) / steps
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ms, peak_gib, launches = _timed_steps(torch, ck, one_step, 2, steps, c, "train")
     if peak_gib > PEAK_GIB_LIMIT:
         raise RuntimeError(f"peak memory {peak_gib:.3f} GiB exceeds {PEAK_GIB_LIMIT} GiB")
-    print(f"train: {dt * 1e3:.3f} ms/step (min {min(times) * 1e3:.3f}, max "
-          f"{max(times) * 1e3:.3f}), {2 * bsz / dt:.3f} img/s, peak memory {peak_gib:.3f} GiB, "
-          f"launches {json.dumps(launches)}", flush=True)
+    print(f"train: {2 * bsz * 1e3 / ms:.3f} img/s", flush=True)
     if profile:
         profile_step(torch, one_step)
-    return launches, dict(state=state, batch=batch, g=g, ms=dt * 1e3)
+    return launches, dict(state=state, batch=batch, g=g, ms=ms)
 
 
 def strategies_phase(torch, ck, train, steps: int, profile: bool):
@@ -351,7 +386,7 @@ def strategies_phase(torch, ck, train, steps: int, profile: bool):
 
     state, batch, g = train["state"], train["batch"], train["g"]
     c, crop, bsz = 21, 512, 8
-    h, w = ts.rep_hw((crop, crop))
+    h, w = state.model.output_hw((crop, crop))
     kept = []
     real_mix = ts.mix_batch
 
@@ -570,16 +605,13 @@ def driver_phase(torch, ck, smi: str, profile: bool):
     ``profile``, run A's third step is profiled (the device drained first);
     the driver's step times then include that step, so read them from a run
     without ``--profile``."""
-    import gc
     import shutil
     import tempfile
 
     from css_tpu_torch.cli import entries, train_main
     from css_tpu_torch.config import CONFIG_DIR
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _free(torch)
     common = ["--config", os.path.join(CONFIG_DIR, "VOC_config_baseline.yaml"), "--synthetic",
               "--job_name", "smoke", "--num_labels", "32"]
     workdir = tempfile.mkdtemp(prefix="chip_smoke_driver_")
@@ -641,6 +673,199 @@ def driver_phase(torch, ck, smi: str, profile: bool):
     print(f"driver ({smi}): steps/s {sps:.4f} = {1e3 / sps:.3f} ms/step (driver StepTimer, "
           f"run A); device-timeline ms between step ends {json.dumps(ms)}; "
           f"peak memory {peak_gib:.3f} GiB; launches {json.dumps(launches)}", flush=True)
+
+
+def _free(torch):
+    """Returns what earlier phases left to the allocator and resets the peak."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _city_state(torch, cfg):
+    """The driver's own state and step for ``cfg`` (a loaded YAML), on the
+    card: random weights from the YAML's seed (no pretrained trunk)."""
+    from css_tpu_torch.cli import entries, train_main
+
+    args = entries.ori_pseudo_parser().parse_args(["--synthetic"])
+    state, step_cfg, step, _ = train_main._build_state_and_steps(cfg, args, torch.device("cuda"))
+    return state, step_cfg, step
+
+
+def _city_batch(torch, b: int, canvas, c: int):
+    """A synthetic batch on the card: uint8 images on the full canvas, labels
+    in [0, C) with 2% ignored (255)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    h, w = canvas
+    lab = torch.randint(0, c, (b, h, w), generator=g, device="cuda", dtype=torch.int32)
+    lab[torch.rand(b, h, w, generator=g, device="cuda") < 0.02] = 255
+    full = torch.tensor([[h, w]] * b, dtype=torch.int32, device="cuda")
+
+    def image():
+        return torch.randint(0, 256, (b, h, w, 3), generator=g, device="cuda", dtype=torch.uint8)
+    return {"l_image": image(), "l_label": lab, "l_valid_hw": full, "u_image": image(),
+            "u_valid_hw": full}
+
+
+def _ohem_on_card(torch, shape, c: int, min_kept: int):
+    """OHEM at the recipe's shape on the card, under a sync-debug mode that
+    raises on any host synchronisation, against the same call on the CPU."""
+    from css_tpu_torch.losses.cross_entropy import ohem_cross_entropy
+
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(*shape, c, generator=g) * 3
+    labels = torch.randint(0, c, shape, generator=g)
+    labels[torch.rand(shape, generator=g) < 0.1] = -1
+    want = ohem_cross_entropy(logits, labels, 0.7, min_kept)
+    lg, lab = logits.cuda(), labels.cuda()
+    ohem_cross_entropy(lg, lab, 0.7, min_kept)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        got = ohem_cross_entropy(lg, lab, 0.7, min_kept)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    print(f"cityscapes OHEM on the card, no host sync: loss {got.item():.6f} (CPU "
+          f"{want.item():.6f}), {start.elapsed_time(end):.3f} ms at {list(shape)} x {c}",
+          flush=True)
+
+
+def cityscapes_phase(torch, ck, smi: str, steps: int, profile: bool):
+    """The shipped Cityscapes recipe: fused and two-pass steps, a ``mix``
+    step, a deep-stem remat step, OHEM alone, and the entry point; see the
+    module docstring.  Returns the fused steps' launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from css_tpu_torch.cli import entries, train_main
+    from css_tpu_torch.config import CONFIG_DIR, load_config
+    from css_tpu_torch.losses import cross_entropy as ce
+    from css_tpu_torch.train.draws import sample_step_draws
+    from css_tpu_torch.train.train_step import make_train_step
+
+    _free(torch)
+    cfg = load_config(os.path.join(CONFIG_DIR, CITY_YAML))
+    c, bsz = cfg.require("Network.num_class"), cfg.require("Dataset.batch_size")
+    state, step_cfg, step = _city_state(torch, cfg)
+    if not step_cfg.fused_forward or step_cfg.sup_loss != "ohem" or state.model.backbone.remat:
+        raise RuntimeError(f"cityscapes: the shipped YAML built {step_cfg}")
+    batch = _city_batch(torch, bsz, tuple(cfg.require("Dataset.canvas_size")), c)
+    h, w = state.model.output_hw(step_cfg.crop_hw)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    print(f"cityscapes: {step_cfg.crop_hw} crops of a {tuple(batch['l_image'].shape[1:3])} "
+          f"canvas, b{bsz}+{bsz}, output {h}x{w}, contrastive table {2 * bsz * h * w} rows",
+          flush=True)
+
+    def runner(st, cfg_, fn, *extra):
+        rows = 2 * bsz * int(np.prod(st.model.output_hw(cfg_.crop_hw)))
+
+        def one_step():
+            draws = sample_step_draws(g, cfg_, bsz, bsz, rows)
+            return fn(st, batch, draws, 1.0, *extra)[1]
+        return one_step
+
+    kept, thresholds = [], []
+    real_ce, real_keep = ce.per_pixel_cross_entropy, ce.ohem_keep_threshold
+
+    def recording_ce(logits, labels):
+        kept.append((labels >= 0).sum())
+        return real_ce(logits, labels)
+
+    def recording_keep(*args):
+        thresholds.append(real_keep(*args))
+        return thresholds[-1]
+
+    fused = runner(state, step_cfg, step)
+    for _ in range(2):
+        fused()
+    ce.per_pixel_cross_entropy, ce.ohem_keep_threshold = recording_ce, recording_keep
+    try:
+        ms_fused, peak, launches = _timed_steps(torch, ck, fused, 0, steps, c, "cityscapes fused")
+    finally:
+        ce.per_pixel_cross_entropy, ce.ohem_keep_threshold = real_ce, real_keep
+    if peak > CITY_PEAK_GIB_LIMIT:
+        raise RuntimeError(f"cityscapes: peak memory {peak:.3f} GiB exceeds "
+                           f"{CITY_PEAK_GIB_LIMIT} GiB")
+    labeled = bsz * step_cfg.crop_hw[0] * step_cfg.crop_hw[1]
+    print(f"cityscapes ({smi}): {ms_fused:.3f} ms/step, {2 * bsz * 1e3 / ms_fused:.3f} img/s, "
+          f"peak memory {peak:.3f} GiB (limit {CITY_PEAK_GIB_LIMIT}); OHEM kept "
+          f"{[int(k) for k in kept]} of {labeled} labeled pixels (min_kept "
+          f"{step_cfg.ohem_min_kept_per_image * bsz}), thresholds "
+          f"{[round(float(t), 6) for t in thresholds]}", flush=True)
+
+    two_pass_cfg = dataclasses.replace(step_cfg, fused_forward=False)
+    two_pass = runner(state, two_pass_cfg, make_train_step(two_pass_cfg))
+    ms_two, peak_two, _ = _timed_steps(torch, ck, two_pass, 1, steps, c, "cityscapes two-pass")
+    print(f"cityscapes fused {ms_fused:.3f} ms/step vs two-pass {ms_two:.3f} ms/step: "
+          f"fused / two-pass {ms_fused / ms_two:.4f}; peaks {peak:.3f} / {peak_two:.3f} GiB",
+          flush=True)
+    if profile:
+        profile_step(torch, fused, "cityscapes fused profile")
+        profile_step(torch, two_pass, "cityscapes two-pass profile")
+
+    # the mix entry point's thresholds (strong 0.8, weak 0.7, unsupervised 0.97)
+    mix_cfg = dataclasses.replace(step_cfg, strategy="mix", strong_threshold=0.8,
+                                  weak_threshold=0.7, un_threshold=0.97, rep_temp=0.5)
+    mix = runner(state, mix_cfg, make_train_step(mix_cfg), False)
+    _timed_steps(torch, ck, mix, 1, 1, c, "cityscapes mix (fused teacher)")
+    del state, step, fused, two_pass, mix, batch
+    _free(torch)
+
+    _ohem_on_card(torch, (bsz,) + tuple(step_cfg.crop_hw), c,
+                  step_cfg.ohem_min_kept_per_image * bsz)
+
+    stem_yaml = load_config(os.path.join(CONFIG_DIR, CITY_YAML))
+    stem_yaml.set("Network.backbone", "resnet101_stem")
+    del stem_yaml.data["Network"]["remat"]            # the default: on above 512^2
+    state, stem_cfg, step = _city_state(torch, stem_yaml)
+    if state.model.backbone.remat is not True:
+        raise RuntimeError("cityscapes: the deep-stem trunk is not remat'd")
+    batch = _city_batch(torch, bsz, tuple(cfg.require("Dataset.canvas_size")), c)
+    _timed_steps(torch, ck, runner(state, stem_cfg, step), 1, 1, c,
+                 "cityscapes resnet101_stem + remat")
+    del state, step, batch
+    _free(torch)
+
+    args = entries.ori_pseudo_parser().parse_args(
+        ["--config", os.path.join(CONFIG_DIR, CITY_YAML), "--synthetic", "--num_labels", "8",
+         "--total_iter", "2", "--max_steps", "2", "--job_name", "smoke"])
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_city_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(workdir)
+        with _DriverProbe(torch, train_main) as probe:
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            result = train_main.run_training("ori", args)
+            seconds = time.perf_counter() - t0
+            entry_launches = dict(ck.LAUNCHES)
+        peak_entry = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+    losses = [{k: v.item() for k, v in m.items()} for m in probe.losses]
+    _check_finite(losses, "cityscapes entry point")
+    if result["steps"] != 2 or len(probe.evals) != 1:
+        raise RuntimeError(f"cityscapes entry point: {result['steps']} steps, "
+                           f"{len(probe.evals)} evals")
+    if any(count != c * 2 for count in entry_launches.values()):
+        raise RuntimeError(f"cityscapes entry point: launches {entry_launches}, want {2 * c}")
+    e = probe.evals[0]
+    print(f"cityscapes entry point: {seconds:.3f} s wall, {json.dumps(result)}, losses "
+          f"{json.dumps(losses)}, eval {e['seconds'] * 1e3 / e['images']:.3f} ms/image over "
+          f"{e['images']} images ({e['pixels']} valid label pixels counted), peak memory "
+          f"{peak_entry:.3f} GiB, launches {json.dumps(entry_launches)}", flush=True)
+    return launches
 
 
 _CATEGORIES = (   # first match wins, on the lower-cased kernel name
@@ -726,27 +951,38 @@ def main() -> int:
     for source, log in _build.build_logs.items():
         print(f"--- nvcc {source}\n{log.strip()}", flush=True)
 
-    kernels = kernel_phase(torch, ck)
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        clock.append(time.perf_counter())
+        print(f"phase {name}: {clock[-1] - clock[-2]:.1f} s", flush=True)
+
+    kernels, city_kernels = kernel_phase(torch, ck)
+    phase_done("kernels")
     contrastive_phase(torch)
     launches, train = train_phase(torch, ck, args.steps, args.profile)
+    phase_done("contrastive + train")
     strategies_phase(torch, ck, train, args.steps, args.profile)
     del train
     cross_entry_phase(torch, ck)
+    phase_done("strategies + cross entry point")
     driver_phase(torch, ck, smi, args.profile)
+    phase_done("driver")
+    city_launches = cityscapes_phase(torch, ck, smi, args.steps, args.profile)
+    phase_done("cityscapes")
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
 
     source = "css_tpu_torch/csrc/" + ck.SOURCE
     tpu = "css_tpu/ops/pallas/contrastive_kernels.py"
-    line = {"kernels": [
-        dict(name="weighted_exp_softsum_fwd", route="cuda", source=source,
-             replaces=f"{tpu}:35", launches=launches["weighted_exp_softsum_fwd"],
-             **kernels["k1"]),
-        dict(name="weighted_exp_softsum_bwd", route="cuda", source=source,
-             replaces=f"{tpu}:60", launches=launches["weighted_exp_softsum_bwd"],
-             **kernels["k2"]),
-        dict(name="live_rows_compact", route="cuda", source=source,
-             replaces=f"{tpu}:155", launches=launches["live_rows_compact"],
-             **kernels["compact"]),
-    ]}
+    rows = []
+    for name, key, line_no in (("weighted_exp_softsum_fwd", "k1", 35),
+                               ("weighted_exp_softsum_bwd", "k2", 60),
+                               ("live_rows_compact", "compact", 155)):
+        # the VOC train phase's row; the Cityscapes table's beside it
+        city = dict(city_kernels[key], n=N_CITY, launches=city_launches[name])
+        rows.append(dict(name=name, route="cuda", source=source, replaces=f"{tpu}:{line_no}",
+                         launches=launches[name], **kernels[key], cityscapes=city))
+    line = {"kernels": rows}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,10 +33,17 @@ draws from a generator seeded by ``(Seed + 1, s)``, so a resumed run draws
 for step ``s`` what an uninterrupted run draws; eval ``e`` (the epoch) crops
 batch ``b`` with a generator seeded by ``(Seed, e, b)``.
 
+The recipe's network and loss settings come from the YAML as the JAX
+driver reads them: ``Network.backbone`` (``resnet101``, ``resnet101_stem``,
+``tiny``, ``tiny_stem``), ``Network.remat`` (a bool or a list of stage
+indices; by default on when the crop area exceeds 512²) and
+``Network.remat_policy``, ``Loss.sup_loss`` (``ohem`` by default for 19
+classes, else ``ce``) with ``Loss.ohem_thresh`` and
+``Loss.ohem_min_kept_per_image``, and ``Training_Setting.fused_forward``.
+
 What the JAX driver supports and the port does not yet is refused by name
-(``NotImplementedError``), never run as something else: OHEM, the deep
-stem, the fused forward, remat, the uint8 augmentation law, other negative
-modes, and more than one device.
+(``NotImplementedError``), never run as something else: the uint8
+augmentation law, other negative modes, and more than one device.
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ from css_tpu_torch.train.draws import sample_augment_draws, sample_step_draws
 from css_tpu_torch.train.schedulers import rampdown_value
 from css_tpu_torch.train.state import create_train_state
 from css_tpu_torch.train.train_step import (STRATEGIES, StepConfig, make_eval_step,
-                                            make_train_step, rep_hw)
+                                            make_train_step)
 from css_tpu_torch.utils import ConfusionMatrix, Logger, ScalarWriter
 from css_tpu_torch.utils.preempt import PreemptionGuard
 from css_tpu_torch.utils.profiling import StepTimer, maybe_profile
@@ -99,18 +106,9 @@ def add_common_args(parser, default_job: str):
 def _refuse_unported(cfg, args) -> None:
     """Raises NotImplementedError naming the first setting the port cannot
     run yet, with its item in ROADMAP.md's Queue 1."""
-    crop = cfg.require("Dataset.crop_size")
-    sup_loss = cfg.get("Loss.sup_loss", "ohem" if cfg.require("Network.num_class") == 19 else "ce")
-    backbone = cfg.get("Network.backbone", "resnet101")
-    fused = cfg.get("Training_Setting.fused_forward", False)
-    remat = cfg.get("Network.remat", crop[0] * crop[1] > 512 * 512)
     quantize = cfg.get("Training_Setting.aug_quantize", False)
     negative_mode = cfg.get("Loss.negative_mode", "sampled_pallas")
     checks = [   # (setting, value, ported, queue item)
-        ("Loss.sup_loss", sup_loss, sup_loss == "ce", 13),
-        ("Network.backbone", backbone, backbone != "resnet101_stem", 13),
-        ("Training_Setting.fused_forward", fused, not fused, 13),
-        ("Network.remat", remat, not remat, 13),
         ("Training_Setting.aug_quantize", quantize, not quantize, 15),
         ("Loss.negative_mode", negative_mode, negative_mode == "sampled_pallas", 15),
         ("--num_devices", args.num_devices, args.num_devices in (None, 1), 14),
@@ -146,12 +144,28 @@ def _apply_cli_shadows(cfg, args, strategy: str) -> None:
         cfg.set("Dataset.name", "Synthetic")
 
 
+def _remat_setting(value):
+    """``Network.remat`` as the trunk takes it: a list of stage indices as a
+    tuple, one index as a 1-tuple (not ``bool(int)``, which would remat
+    every stage), anything else as a bool."""
+    if isinstance(value, (list, tuple)):
+        return tuple(value)
+    if isinstance(value, int) and not isinstance(value, bool):
+        return (value,)
+    return bool(value)
+
+
 def _build_state_and_steps(cfg, args, device, strategy: str = "ori"):
     num_classes = cfg.require("Network.num_class")
     output_dim = cfg.get("Network.output_dim", 256)
+    crop = tuple(cfg.require("Dataset.crop_size"))
     model = build_model(num_classes, output_dim, cfg.get("Network.backbone", "resnet101"),
                         dtype=_DTYPES[cfg.get("Network.dtype", "bfloat16")],
-                        seed=cfg.get("Seed", 3407))
+                        seed=cfg.get("Seed", 3407),
+                        # by crop area, the quantity that sets activation memory
+                        remat=_remat_setting(cfg.get("Network.remat",
+                                                     crop[0] * crop[1] > 512 * 512)),
+                        remat_policy=cfg.get("Network.remat_policy", "nothing"))
     pretrained = cfg.get("Network.pretrained", "./pretrained/resnet101.pth")
     if pretrained and os.path.exists(pretrained):
         sd = torch.load(pretrained, map_location="cpu", weights_only=True)
@@ -166,10 +180,15 @@ def _build_state_and_steps(cfg, args, device, strategy: str = "ori"):
         device=device)
     step_cfg = StepConfig(
         num_classes=num_classes,
-        crop_hw=tuple(cfg.require("Dataset.crop_size")),
+        crop_hw=crop,
         scale_range=tuple(cfg.require("Dataset.scale_size")),
         strategy=strategy,
         mix_mode=cfg.get("Dataset.mix_mode", "cutmix"),
+        # by the class count (19: the Cityscapes taxonomy), not Dataset.name,
+        # which --synthetic rewrites
+        sup_loss=cfg.get("Loss.sup_loss", "ohem" if num_classes == 19 else "ce"),
+        ohem_thresh=cfg.get("Loss.ohem_thresh", 0.7),
+        ohem_min_kept_per_image=cfg.get("Loss.ohem_min_kept_per_image", 50000),
         un_threshold=cfg.get("Loss.un_threshold", 0.97),
         weak_threshold=cfg.get("Loss.weak_threshold", 0.7),
         strong_threshold=cfg.get("Loss.strong_threshold", 0.97),
@@ -181,6 +200,7 @@ def _build_state_and_steps(cfg, args, device, strategy: str = "ori"):
         ema_alpha=cfg.get("EMA.alpha", 0.99),
         contrast_enabled=bool(cfg.get("Loss.is_available", True)),
         negative_mode=cfg.get("Loss.negative_mode", "sampled_pallas"),
+        fused_forward=bool(cfg.get("Training_Setting.fused_forward", False)),
     )
     return (state, step_cfg, make_train_step(step_cfg),
             make_eval_step(state.teacher, num_classes))
@@ -343,7 +363,7 @@ def run_training(strategy: str, args) -> dict:
                 log.info(f"WARNING --prototypes_resume {proto_resume} does not exist; ignored")
         warmup = getattr(args, "warmup", 0)
 
-        h, w = rep_hw(step_cfg.crop_hw)
+        h, w = state.model.output_hw(step_cfg.crop_hw)
         rep_pixels = 2 * batch_size * h * w
         timer = StepTimer()
         u_iter = InfiniteLoader(train_u, start_epoch)

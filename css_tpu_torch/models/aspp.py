@@ -2,7 +2,8 @@
 
 A 1x1 branch, three dilated 3x3 branches and a global-pool branch,
 concatenated (5 x 256 channels) and projected by a 1x1 conv.  The pooled map
-is 1x1, so its upsample is a broadcast.
+is 1x1, so its upsample is a broadcast, and its BatchNorm sees one value per
+image and channel (n = B/G per group).
 """
 
 from __future__ import annotations
@@ -30,11 +31,11 @@ class ASPP(nn.Module):
         self.pool_conv = ConvBN(in_ch, features, 1, dtype=dtype)
         self.project = ConvBN(features * (2 + len(atrous_rates)), features, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        branches = [self.conv1x1(x)]
-        branches += [getattr(self, name)(x) for name in self.atrous_names]
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        branches = [self.conv1x1(x, groups)]
+        branches += [getattr(self, name)(x, groups) for name in self.atrous_names]
         # mean accumulated in f32 and returned in the compute dtype, as jnp.mean
         pooled = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
-        pooled = self.pool_conv(pooled)
+        pooled = self.pool_conv(pooled, groups)
         branches.append(pooled.expand_as(branches[0]))
-        return self.project(torch.cat(branches, dim=1))
+        return self.project(torch.cat(branches, dim=1), groups)

@@ -17,9 +17,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from css_tpu_torch.models.aspp import ASPP
-from css_tpu_torch.models.resnet import ConvBN, ResNetBackbone, resnet101, resnet_tiny
+from css_tpu_torch.models.resnet import (ConvBN, ResNetBackbone, resnet101, resnet101_stem,
+                                        resnet_tiny)
 
-__all__ = ["DeepLabV3PlusDual", "build_model"]
+__all__ = ["DeepLabV3PlusDual", "build_model", "BACKBONES"]
+
+BACKBONES = ("resnet101", "resnet101_stem", "tiny", "tiny_stem")
 
 
 class _Head(nn.Module):
@@ -37,8 +40,8 @@ class _Head(nn.Module):
         bound = 1.0 / math.sqrt(256)
         nn.init.uniform_(self.out.bias, -bound, bound)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        x = self.conv(x, groups)
         return F.conv2d(x, self.out.weight.to(self.dtype), self.out.bias.to(self.dtype))
 
 
@@ -55,31 +58,47 @@ class DeepLabV3PlusDual(nn.Module):
         self.classifier = _Head(48 + 256, num_classes, dtype)
         self.representation = _Head(48 + 256, output_dim, dtype)
 
-    def forward(self, x: torch.Tensor):
-        """``x`` [B, H, W, 3] -> (pred, rep), NHWC f32 at H/4 x W/4."""
-        low, feat = self.backbone(x.permute(0, 3, 1, 2))
-        feat = self.aspp(feat)
-        low = self.project(low)
+    def output_hw(self, hw):
+        """Spatial size of ``(pred, rep)`` for an input of ``hw``: about /4,
+        as the trunk's stem gives it (193 at 769 under either stem; 129 at
+        512 under the deep stem, 128 under the plain one)."""
+        return self.backbone.low_level_hw(hw)
+
+    def forward(self, x: torch.Tensor, bn_groups: int = 1):
+        """``x`` [B, H, W, 3] -> (pred, rep), NHWC f32 at ``output_hw``.
+        ``bn_groups`` > 1: the batch is that many stacked groups with
+        separate BatchNorm statistics (the fused forward); it changes
+        nothing in eval mode."""
+        g = bn_groups
+        low, feat = self.backbone(x.permute(0, 3, 1, 2), g)
+        feat = self.aspp(feat, g)
+        low = self.project(low, g)
         feat = F.interpolate(feat.float(), size=low.shape[2:], mode="bilinear",
                              align_corners=True).to(low.dtype)
         dec = torch.cat([low, feat], dim=1)
-        pred = self.classifier(dec)
-        rep = self.representation(dec)
+        pred = self.classifier(dec, g)
+        rep = self.representation(dec, g)
         return (pred.float().permute(0, 2, 3, 1),
                 rep.float().permute(0, 2, 3, 1))
 
 
 def build_model(num_classes: int, output_dim: int = 256, backbone: str = "resnet101",
                 output_stride: int = 8, dtype: torch.dtype = torch.float32,
-                seed: int = 0) -> DeepLabV3PlusDual:
+                seed: int = 0, remat=False, remat_policy: str = "nothing") -> DeepLabV3PlusDual:
     """The student/teacher network, randomly initialized from ``seed``
-    (on the CPU; move it with ``.to(device)``)."""
+    (on the CPU; move it with ``.to(device)``).  ``backbone`` is one of
+    ``BACKBONES``: the plain-stem ResNet-101 (VOC), the deep-stem multi-grid
+    ``resnet101_stem`` (a Cityscapes option), or the tiny test trunks;
+    ``remat``/``remat_policy`` as ``ResNetBackbone`` takes them."""
+    kw = dict(dtype=dtype, remat=remat, remat_policy=remat_policy)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         if backbone == "resnet101":
-            trunk = resnet101(output_stride, dtype=dtype)
-        elif backbone == "tiny":
-            trunk = resnet_tiny(output_stride, dtype=dtype)
+            trunk = resnet101(output_stride, **kw)
+        elif backbone == "resnet101_stem":
+            trunk = resnet101_stem(output_stride, **kw)
+        elif backbone in ("tiny", "tiny_stem"):
+            trunk = resnet_tiny(output_stride, deep_stem=backbone == "tiny_stem", **kw)
         else:
-            raise ValueError(f"unknown backbone {backbone}")
+            raise ValueError(f"unknown backbone {backbone} (one of {BACKBONES})")
         return DeepLabV3PlusDual(trunk, num_classes, output_dim, dtype)

@@ -1,24 +1,35 @@
-"""ResNet trunk (plain stem, output stride 8), counterpart of
+"""ResNet trunks (plain or deep stem, output stride 8), counterpart of
 ``css_tpu/models/resnet.py``.
 
 Modules take and return NCHW tensors; the parameters are f32 and are cast to
 the compute dtype (``dtype``) at each conv, as Flax's ``dtype=`` does.
 Parameter names follow the Flax module paths (``stem.conv.weight``,
-``layer3_0.conv2.bn.running_var``, ...), so ``models/convert.py`` maps one
-tree onto the other by name.
+``layer3_0.conv2.bn.running_var``, ``stem1.bn.weight``, ``layer6_0...``), so
+``models/convert.py`` maps one tree onto the other by name.
+
+Every ``forward`` takes ``groups``: the batch is that many equal groups that
+keep separate BatchNorm statistics (the fused labeled + unlabeled forward).
+
+``remat`` recomputes the bottlenecks of the chosen stages in backward
+(``torch.utils.checkpoint``).  The recompute leaves the BatchNorm running
+stats alone: each BN advances them once per forward, as without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["GroupedBatchNorm", "ConvBN", "Bottleneck", "StageSpec",
-           "ResNetBackbone", "resnet101", "resnet_tiny"]
+__all__ = ["GroupedBatchNorm", "ConvBN", "Bottleneck", "StageSpec", "ResNetBackbone",
+           "REMAT_POLICIES", "resnet101", "resnet101_stem", "resnet_tiny"]
+
+REMAT_POLICIES = ("nothing", "save_mid")
 
 
 def _channel(v: torch.Tensor) -> torch.Tensor:
@@ -26,14 +37,16 @@ def _channel(v: torch.Tensor) -> torch.Tensor:
 
 
 class GroupedBatchNorm(nn.Module):
-    """BatchNorm with the reference's numerics (one group; the grouped form
-    of the fused forward is not ported yet).
+    """BatchNorm with the reference's numerics, statistics per batch group.
 
-    Train mode: statistics in f32, variance as E[x^2] - E[x]^2; the normalize
-    runs in the input dtype with f32-folded scalars; running stats move with
-    momentum 0.9 and torch's unbiased n/(n-1) variance (n = B for the ASPP
-    pool BN, so a factor 2 at B = 2).  Eval mode normalizes with the running
-    stats, again in the input dtype.
+    Train mode: the leading axis splits into ``groups`` equal groups; each
+    takes its statistics in f32 (variance as E[x^2] - E[x]^2) and is
+    normalized by them in the input dtype with f32-folded scalars.  The
+    running stats then move with momentum 0.9 once per group, group 0 first,
+    each time with torch's unbiased n/(n-1) variance, n = (B/G)·H·W (B/G for
+    the ASPP pool BN).  Eval mode normalizes with the running stats, again in
+    the input dtype.  ``update_stats`` False (while a checkpointed block is
+    recomputed) leaves the running stats as they are.
     """
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
@@ -41,31 +54,56 @@ class GroupedBatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.update_stats = True
         self.weight = nn.Parameter(torch.zeros(channels) if zero_init_scale
                                    else torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         dtype = x.dtype
         if not self.training:
             inv = (self.weight * torch.rsqrt(self.running_var + self.eps)).to(dtype)
             return ((x - _channel(self.running_mean.to(dtype))) * _channel(inv)
                     + _channel(self.bias.to(dtype)))
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.square(xf).mean(dim=(0, 2, 3)) - torch.square(mean)
+        b, c = x.shape[:2]
+        if b % groups:
+            raise ValueError(f"GroupedBatchNorm: batch {b} does not split into {groups} groups")
+        xg = x.reshape((groups, b // groups) + tuple(x.shape[1:]))
+        red = (1,) + tuple(range(3, xg.ndim))
+        xf = xg.float()
+        mean = xf.mean(dim=red)                                   # [G, C]
+        var = torch.square(xf).mean(dim=red) - torch.square(mean)
         inv = self.weight * torch.rsqrt(var + self.eps)
-        y = ((x - _channel(mean.to(dtype))) * _channel(inv.to(dtype))
-             + _channel(self.bias.to(dtype)))
-        with torch.no_grad():
-            n = x.numel() // x.shape[1]
-            bessel = n / max(n - 1.0, 1.0)
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var * bessel)
-        return y
+        shape = (groups, 1, c) + (1,) * (x.ndim - 2)
+        y = ((xg - mean.reshape(shape).to(dtype)) * inv.reshape(shape).to(dtype)
+             + self.bias.reshape(shape[1:]).to(dtype))
+        if self.update_stats:
+            with torch.no_grad():
+                n = xg[0].numel() // c
+                bessel = n / max(n - 1.0, 1.0)
+                m = self.momentum
+                run_mean, run_var = self.running_mean, self.running_var
+                for g in range(groups):
+                    run_mean = m * run_mean + (1 - m) * mean[g]
+                    run_var = m * run_var + (1 - m) * var[g] * bessel
+                self.running_mean.copy_(run_mean)
+                self.running_var.copy_(run_var)
+        return y.reshape(x.shape)
+
+
+@contextlib.contextmanager
+def _stats_frozen(module: nn.Module):
+    """The BatchNorms of ``module`` leave their running stats alone inside."""
+    bns = [m for m in module.modules() if isinstance(m, GroupedBatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
 
 
 class ConvBN(nn.Module):
@@ -87,17 +125,20 @@ class ConvBN(nn.Module):
         nn.init.kaiming_normal_(self.conv.weight, mode="fan_out", nonlinearity="relu")
         self.bn = GroupedBatchNorm(out_ch, zero_init_scale=zero_init_scale)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype), None,
                      self.stride, self.padding, self.dilation)
-        x = self.bn(x)
+        x = self.bn(x, groups)
         if self.relu:
             x = F.relu(x)
         return x.to(self.dtype)
 
 
 class Bottleneck(nn.Module):
-    """torchvision bottleneck: 1x1 -> 3x3 (stride, dilation) -> 1x1 x4."""
+    """torchvision bottleneck: 1x1 -> 3x3 (stride, dilation) -> 1x1 x4.
+
+    ``head`` (conv1, conv2) and ``tail`` (conv3, the shortcut, the add) are
+    the two segments the ``save_mid`` remat policy checkpoints apart."""
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1, dilation: int = 1,
                  has_downsample: bool = False, zero_init_residual: bool = False,
@@ -111,10 +152,16 @@ class Bottleneck(nn.Module):
         self.downsample = (ConvBN(in_ch, planes * 4, 1, stride, 1, relu=False, **kw)
                            if has_downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv3(self.conv2(self.conv1(x)))
-        identity = self.downsample(x) if self.downsample is not None else x
+    def head(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        return self.conv2(self.conv1(x, groups), groups)
+
+    def tail(self, mid: torch.Tensor, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        out = self.conv3(mid, groups)
+        identity = self.downsample(x, groups) if self.downsample is not None else x
         return F.relu(out + identity)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        return self.tail(self.head(x, groups), x, groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,14 +174,35 @@ class StageSpec:
 
 
 class ResNetBackbone(nn.Module):
-    """Plain-stem ResNet trunk returning (low-level /4 features, final features)."""
+    """ResNet trunk returning (low-level /4 features, final features).
 
-    def __init__(self, stages: Sequence[StageSpec], dtype: torch.dtype = torch.float32):
+    ``deep_stem=False`` is torchvision's 7x7 stem and floor-mode max pool;
+    ``deep_stem=True`` the reference ``ResNet_Stem``: three 3x3 convs to 128
+    channels and a ceil-mode max pool.  ``remat`` is True (every stage), a
+    tuple of 0-based stage indices, or False; ``remat_policy`` "nothing"
+    recomputes whole blocks in backward, "save_mid" keeps each block's conv2
+    output and recomputes its two halves apart.
+    """
+
+    def __init__(self, stages: Sequence[StageSpec], deep_stem: bool = False,
+                 zero_init_residual: bool = False, dtype: torch.dtype = torch.float32,
+                 remat: Union[bool, Tuple[int, ...]] = False, remat_policy: str = "nothing"):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r} (one of {REMAT_POLICIES})")
         self.stages = tuple(stages)
-        self.stem = ConvBN(3, 64, 7, 2, relu=True, dtype=dtype)
+        self.deep_stem = deep_stem
+        self.remat = tuple(remat) if isinstance(remat, (tuple, list)) else bool(remat)
+        self.remat_policy = remat_policy
+        if deep_stem:
+            self.stem1 = ConvBN(3, 64, 3, 2, dtype=dtype)
+            self.stem2 = ConvBN(64, 64, 3, 1, dtype=dtype)
+            self.stem3 = ConvBN(64, 128, 3, 1, dtype=dtype)
+            in_ch = 128
+        else:
+            self.stem = ConvBN(3, 64, 7, 2, dtype=dtype)
+            in_ch = 64
         self.block_names = []
-        in_ch = 64
         for si, spec in enumerate(self.stages):
             names = []
             for bi in range(spec.blocks):
@@ -145,7 +213,7 @@ class ResNetBackbone(nn.Module):
                     in_ch, spec.planes, stride=stride,
                     dilation=spec.first_dilation if first else spec.rest_dilation,
                     has_downsample=first and (spec.stride != 1 or in_ch != spec.planes * 4),
-                    dtype=dtype))
+                    zero_init_residual=zero_init_residual, dtype=dtype))
                 names.append(name)
                 in_ch = spec.planes * 4
             self.block_names.append(names)
@@ -159,39 +227,82 @@ class ResNetBackbone(nn.Module):
             s *= spec.stride
         return s
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.stem(x)
-        x = F.max_pool2d(x, 3, 2, 1, ceil_mode=False)
+    def low_level_hw(self, hw: Tuple[int, int]) -> Tuple[int, int]:
+        """Spatial size of the low-level (/4) features for an input of ``hw``:
+        the stride-2 stem conv, then the 3x3/2 max pool (ceil mode under the
+        deep stem, so 32 -> 9 and 512 -> 129 there, 8 and 128 plain)."""
+        def one(x):
+            x = (x - 1) // 2 + 1                  # 7x7 pad 3 or 3x3 pad 1, stride 2
+            if not self.deep_stem:
+                return (x - 1) // 2 + 1
+            out = -(-(x - 1) // 2) + 1            # torch's ceil mode: the last window
+            return out - 1 if (out - 1) * 2 >= x + 1 else out   # starts inside
+        return one(hw[0]), one(hw[1])
+
+    def _remat_stage(self, si: int) -> bool:
+        return si in self.remat if isinstance(self.remat, tuple) else self.remat
+
+    def _block(self, block: Bottleneck, x: torch.Tensor, groups: int, remat: bool):
+        if not (remat and torch.is_grad_enabled()):
+            return block(x, groups)
+        kw = dict(use_reentrant=False, preserve_rng_state=False,
+                  context_fn=lambda: (contextlib.nullcontext(), _stats_frozen(block)))
+        if self.remat_policy == "save_mid":
+            mid = checkpoint(block.head, x, groups, **kw)
+            return checkpoint(block.tail, mid, x, groups, **kw)
+        return checkpoint(block, x, groups, **kw)
+
+    def forward(self, x: torch.Tensor, groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.deep_stem:
+            x = self.stem3(self.stem2(self.stem1(x, groups), groups), groups)
+            x = F.max_pool2d(x, 3, 2, 1, ceil_mode=True)
+        else:
+            x = F.max_pool2d(self.stem(x, groups), 3, 2, 1, ceil_mode=False)
         low = None
         for si, names in enumerate(self.block_names):
+            remat = self._remat_stage(si)
             for name in names:
-                x = getattr(self, name)(x)
+                x = self._block(getattr(self, name), x, groups, remat)
             if si == 0:
                 low = x
         return low, x
 
 
-def _stage_specs(layers: Sequence[int], output_stride: int) -> Tuple[StageSpec, ...]:
-    """Plain-stem stage schedule; output stride 8 reproduces the reference's
-    re-dilation surgery (layer3 dilation 1 then 2, layer4 2 then 4)."""
+def _stage_specs(layers: Sequence[int], output_stride: int,
+                 multi_grid: bool = False) -> Tuple[StageSpec, ...]:
+    """Stage schedule at output stride 8.  Plain: the reference's
+    re-dilation surgery (layer3 dilation 1 then 2, layer4 2 then 4).
+    Multi-grid (deep stem): layer4 as three single-block stages at dilations
+    4, 8 and 16, named ``layer4_0``, ``layer5_0``, ``layer6_0`` as in Flax."""
     if output_stride != 8:
         raise ValueError(f"unsupported output_stride {output_stride} (the port has OS8)")
     l1, l2, l3, l4 = layers
-    return (
-        StageSpec(64, l1, 1, 1, 1),
-        StageSpec(128, l2, 2, 1, 1),
-        StageSpec(256, l3, 1, 1, 2),
-        StageSpec(512, l4, 1, 2, 4),
-    )
+    head = (StageSpec(64, l1, 1, 1, 1), StageSpec(128, l2, 2, 1, 1), StageSpec(256, l3, 1, 1, 2))
+    if multi_grid:
+        return head + tuple(StageSpec(512, 1, 1, d, d) for d in (4, 8, 16))
+    return head + (StageSpec(512, l4, 1, 2, 4),)
 
 
-def resnet101(output_stride: int = 8, dtype: torch.dtype = torch.float32) -> ResNetBackbone:
-    """Plain-stem ResNet-101 trunk."""
-    return ResNetBackbone(_stage_specs([3, 4, 23, 3], output_stride), dtype=dtype)
+def resnet101(output_stride: int = 8, dtype: torch.dtype = torch.float32, remat=False,
+              remat_policy: str = "nothing") -> ResNetBackbone:
+    """Plain-stem ResNet-101 trunk (torchvision weight-compatible)."""
+    return ResNetBackbone(_stage_specs([3, 4, 23, 3], output_stride), dtype=dtype,
+                          remat=remat, remat_policy=remat_policy)
 
 
-def resnet_tiny(output_stride: int = 8, dtype: torch.dtype = torch.float32) -> ResNetBackbone:
-    """Miniature trunk (one block per stage, narrow) for tests."""
+def resnet101_stem(output_stride: int = 8, dtype: torch.dtype = torch.float32, remat=False,
+                   remat_policy: str = "nothing") -> ResNetBackbone:
+    """Deep-stem multi-grid ResNet-101 trunk (reference ``ResNet_Stem``), its
+    residual BNs' scales starting at zero."""
+    return ResNetBackbone(_stage_specs([3, 4, 23, 3], output_stride, multi_grid=True),
+                          deep_stem=True, zero_init_residual=True, dtype=dtype,
+                          remat=remat, remat_policy=remat_policy)
+
+
+def resnet_tiny(output_stride: int = 8, dtype: torch.dtype = torch.float32, remat=False,
+                remat_policy: str = "nothing", deep_stem: bool = False) -> ResNetBackbone:
+    """Miniature trunk (one block per stage, narrow) for tests; ``deep_stem``
+    gives the reference's ``tiny_stem``."""
     if output_stride != 8:
         raise ValueError("tiny trunk only supports OS8")
     return ResNetBackbone((
@@ -199,4 +310,4 @@ def resnet_tiny(output_stride: int = 8, dtype: torch.dtype = torch.float32) -> R
         StageSpec(16, 1, 2, 1, 1),
         StageSpec(32, 1, 1, 1, 2),
         StageSpec(64, 1, 1, 2, 4),
-    ), dtype=dtype)
+    ), deep_stem=deep_stem, dtype=dtype, remat=remat, remat_policy=remat_policy)

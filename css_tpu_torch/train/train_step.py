@@ -6,8 +6,15 @@ Dataflow, in the reference's module-call order:
   augment the labeled batch -> base-crop the unlabeled batch -> teacher
   forward (train mode, no grad) -> pseudo-labels and confidences -> scale /
   crop, mixing, photometric + flip of the unlabeled batch -> student forward
-  on labeled, then on unlabeled -> CE + attention-threshold + prototype
-  contrastive losses -> backward -> SGD (nesterov, poly LR) -> teacher EMA.
+  on labeled, then on unlabeled -> CE (or OHEM CE) + attention-threshold +
+  prototype contrastive losses -> backward -> SGD (nesterov, poly LR) ->
+  teacher EMA.
+
+``fused_forward`` runs each pair of forwards (the student's labeled and
+unlabeled, and the ``mix``/``cross`` teacher's) as one pass over the
+concatenated batch with ``bn_groups=2``: the grouped BatchNorm keeps each
+half's statistics and advances the running stats labeled first, as the two
+passes do.
 
 The strategies differ in the pseudo-labels and in the probability that
 mines the contrastive anchors:
@@ -38,7 +45,7 @@ from typing import Dict, Tuple
 import torch
 
 from css_tpu_torch.losses.contrastive import l2_normalize, prototype_contrastive_loss
-from css_tpu_torch.losses.cross_entropy import cross_entropy
+from css_tpu_torch.losses.cross_entropy import cross_entropy, ohem_cross_entropy
 from css_tpu_torch.losses.threshold import attention_threshold_loss
 from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet,
                                        to_channel_first, to_channel_last)
@@ -48,9 +55,10 @@ from css_tpu_torch.ops.onehot import label_onehot, label_onehot_ignore
 from css_tpu_torch.train.draws import StepDraws
 from css_tpu_torch.train.state import TrainState, ema_update
 
-__all__ = ["StepConfig", "STRATEGIES", "make_train_step", "make_eval_step", "rep_hw"]
+__all__ = ["StepConfig", "STRATEGIES", "SUP_LOSSES", "make_train_step", "make_eval_step"]
 
 STRATEGIES = ("ori", "mix", "cross")
+SUP_LOSSES = ("ce", "ohem")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +71,9 @@ class StepConfig:
     scale_range: Tuple[float, float]
     strategy: str = "ori"                     # ori | mix | cross
     mix_mode: str = "cutmix"                  # none | cutout | cutmix | classmix
+    sup_loss: str = "ce"                      # ce | ohem
+    ohem_thresh: float = 0.7
+    ohem_min_kept_per_image: int = 50000      # times the labeled batch
     un_threshold: float = 0.97
     weak_threshold: float = 0.7
     strong_threshold: float = 0.97
@@ -74,15 +85,7 @@ class StepConfig:
     ema_alpha: float = 0.99
     contrast_enabled: bool = True             # Loss.is_available in the YAML
     negative_mode: str = "sampled_pallas"
-
-
-def rep_hw(crop_hw: Tuple[int, int]) -> Tuple[int, int]:
-    """Spatial size of the model outputs: the stride-2 7x7 stem conv, then
-    the stride-2 3x3 max pool."""
-    def one(x):
-        x = (x + 6 - 7) // 2 + 1
-        return (x + 2 - 3) // 2 + 1
-    return one(crop_hw[0]), one(crop_hw[1])
+    fused_forward: bool = False               # one pass over labeled + unlabeled
 
 
 def _remap_ignore(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -120,6 +123,8 @@ def make_train_step(cfg: StepConfig):
         raise ValueError(f"unknown strategy {cfg.strategy!r} (one of {STRATEGIES})")
     if cfg.mix_mode not in MIX_MODES:
         raise ValueError(f"unknown mix mode {cfg.mix_mode!r} (one of {MIX_MODES})")
+    if cfg.sup_loss not in SUP_LOSSES:
+        raise ValueError(f"unknown sup_loss {cfg.sup_loss!r} (one of {SUP_LOSSES})")
     if cfg.negative_mode != "sampled_pallas":
         raise NotImplementedError(f"negative_mode={cfg.negative_mode!r} is not ported yet "
                                   "(the port has 'sampled_pallas')")
@@ -130,9 +135,14 @@ def make_train_step(cfg: StepConfig):
         """The teacher's labels [B, K, H, W] and confidences [B, L, H, W] of
         the unlabeled batch at crop size."""
         state.teacher.train()
-        if cfg.strategy != "ori":
+        if cfg.strategy == "ori":
+            pred_u_t, rep_u_t = state.teacher(u_img)
+        elif cfg.fused_forward:
+            pred_t, rep_t = state.teacher(torch.cat([l_img, u_img]), bn_groups=2)
+            pred_u_t, rep_u_t = pred_t[l_img.shape[0]:], rep_t[l_img.shape[0]:]
+        else:
             state.teacher(l_img)      # advances the teacher's BN stats, labeled first
-        pred_u_t, rep_u_t = state.teacher(u_img)
+            pred_u_t, rep_u_t = state.teacher(u_img)
         probs = torch.softmax(bilinear_resize(pred_u_t, (ch, cw), align_corners=True), dim=-1)
         conf_cls, lab_cls = torch.max(probs, dim=-1)
         if cfg.strategy == "ori":
@@ -187,17 +197,30 @@ def make_train_step(cfg: StepConfig):
         unsup_label, unsup_conf = u_labels[:, k], u_confs[:, k]
         conf_cls = u_confs[:, 0]
 
-        # two sequential student forwards: per-half BN statistics, labeled first
+        # per-half BN statistics, labeled first: two passes, or one grouped
         model.train()
-        pred_l, rep_l = model(l_img)
-        pred_u, rep_u = model(u_img)
+        if cfg.fused_forward:
+            pred, rep = model(torch.cat([l_img, u_img]), bn_groups=2)
+            pred_l, pred_u, rep_l, rep_u = pred[:bl], pred[bl:], rep[:bl], rep[bl:]
+        else:
+            pred_l, rep_l = model(l_img)
+            pred_u, rep_u = model(u_img)
         pred_l_large = bilinear_resize(pred_l, (ch, cw), align_corners=True)
         pred_u_large = bilinear_resize(pred_u, (ch, cw), align_corners=True)
-        sup = cross_entropy(pred_l_large, l_label)
+        if cfg.sup_loss == "ohem":
+            sup = ohem_cross_entropy(pred_l_large, l_label, cfg.ohem_thresh,
+                                     cfg.ohem_min_kept_per_image * bl)
+        else:
+            sup = cross_entropy(pred_l_large, l_label)
         unsup = attention_threshold_loss(pred_u_large, unsup_label, unsup_conf, cfg.un_threshold)
 
         if cfg.contrast_enabled:
+            # the model's output size (193 at 769, 129 at 512 under the deep stem)
             hw = (pred_l.shape[1], pred_l.shape[2])
+            rows = (bl + bu) * hw[0] * hw[1]
+            if draws.contrast.tie.shape[0] != rows:
+                raise ValueError(f"contrastive draws sized for {draws.contrast.tie.shape[0]} "
+                                 f"rows; the model's {bl}+{bu} outputs at {hw} have {rows}")
             mask_l = nearest_resize((l_label >= 0).float(), hw)
             mask_u = nearest_resize((conf_cls >= cfg.weak_threshold).float(), hw)
             onehot_u = label_onehot_ignore if cfg.strategy == "mix" else label_onehot

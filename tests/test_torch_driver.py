@@ -34,6 +34,7 @@ from css_tpu.models.convert import convert_resnet_backbone
 from css_tpu_torch.cli import entries, train_main
 from css_tpu_torch.config import CONFIG_DIR, Config, dump_config, load_config
 from css_tpu_torch.config.config import dump_yaml, parse_yaml
+from css_tpu_torch.losses import cross_entropy as ohem_module
 from css_tpu_torch.data import (BatchLoader, CityscapesSpec, InfiniteLoader, SyntheticSpec,
                                 VOCSpec, read_split_lists)
 from css_tpu_torch.models.convert import from_jax_variables, load_torchvision_backbone
@@ -441,10 +442,6 @@ def test_labeled_split_smaller_than_a_batch_fails_fast(tmp_path):
 
 @pytest.mark.parametrize("key,override,flags", [
     ("strategy", {}, ()),
-    ("Loss.sup_loss", {"Loss.sup_loss": "ohem"}, ()),
-    ("Network.backbone", {"Network.backbone": "resnet101_stem"}, ()),
-    ("Training_Setting.fused_forward", {"Training_Setting.fused_forward": True}, ()),
-    ("Network.remat", {"Network.remat": True}, ()),
     ("Training_Setting.aug_quantize", {"Training_Setting.aug_quantize": True}, ()),
     ("Loss.negative_mode", {"Loss.negative_mode": "expected_pallas"}, ()),
     ("Dataset.mix_mode", {"Dataset.mix_mode": "classmix"}, ()),
@@ -457,20 +454,102 @@ def test_driver_refuses_what_is_not_ported_by_name(tmp_path, key, override, flag
     if key in ("strategy", "Dataset.mix_mode"):
         # ported since: mix and cross (with any mix mode) pass the checks,
         # and what the port cannot run is refused under them as under ori
-        (tmp_path / "remat").mkdir()
-        refused = _tiny_yaml(tmp_path / "remat", **override, **{"Network.remat": True})
+        (tmp_path / "quantize").mkdir()
+        refused = _tiny_yaml(tmp_path / "quantize", **override,
+                             **{"Training_Setting.aug_quantize": True})
         for strategy in ("mix", "cross"):
             train_main._refuse_unported(load_config(config), args)
-            with pytest.raises(NotImplementedError, match="Network.remat"):
+            with pytest.raises(NotImplementedError, match="Training_Setting.aug_quantize"):
                 train_main.run_training(strategy, entries.mix_label_parser().parse_args(
                     ["--config", refused, "--device", "cpu", "--synthetic"]))
         with pytest.raises(ValueError, match="unknown strategy"):
             train_main.run_training("bogus", args)
-        assert not (tmp_path / "remat" / "ckpt").exists()
+        assert not (tmp_path / "quantize" / "ckpt").exists()
     else:
         with pytest.raises(NotImplementedError, match=re.escape(key)):
             train_main.run_training("ori", args)
     assert not (tmp_path / "ckpt").exists()      # refused before any work
+
+
+def _probe_run(monkeypatch):
+    """Records what the driver builds (state, step config), each step's
+    starting step count and prototypes, draws and losses, and counts OHEM
+    thresholds and the student's BN groups."""
+    seen = {"starts": [], "draws": [], "metrics": [], "ohem": 0, "bn_groups": set()}
+    build, make = train_main._build_state_and_steps, train_main.make_train_step
+
+    def building(*args, **kw):
+        out = build(*args, **kw)
+        seen["state"], seen["cfg"] = out[0], out[1]
+        out[0].model.register_forward_pre_hook(
+            lambda mod, args, kw: seen["bn_groups"].add(kw.get("bn_groups", 1)),
+            with_kwargs=True)
+        return out
+
+    def making(cfg):
+        step = make(cfg)
+
+        def probed(state, batch, draws, *args):
+            seen["starts"].append((state.step, state.prototypes.clone()))
+            seen["draws"].append(draws)
+            state, metrics = step(state, batch, draws, *args)
+            seen["metrics"].append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+        return probed
+
+    real_keep = ohem_module.ohem_keep_threshold
+
+    def keep(*args):
+        seen["ohem"] += 1
+        return real_keep(*args)
+
+    monkeypatch.setattr(train_main, "_build_state_and_steps", building)
+    monkeypatch.setattr(train_main, "make_train_step", making)
+    monkeypatch.setattr(ohem_module, "ohem_keep_threshold", keep)
+    return seen
+
+
+@pytest.mark.parametrize("key,override", [
+    ("Loss.sup_loss", {"Loss.sup_loss": "ohem", "Loss.ohem_min_kept_per_image": 64}),
+    ("Network.backbone", {"Network.backbone": "tiny_stem"}),
+    ("Training_Setting.fused_forward", {"Training_Setting.fused_forward": True}),
+    ("Network.remat", {"Network.remat": [2], "Network.remat_policy": "save_mid"}),
+])
+def test_driver_runs_the_cityscapes_settings(tmp_path, monkeypatch, key, override):
+    """Each setting the driver refused before the Cityscapes recipe was
+    ported now trains a step, and reaches the step as the YAML says."""
+    seen = _probe_run(monkeypatch)
+    result = _train(_tiny_yaml(tmp_path, **override), "city", "--synthetic",
+                    "--total_iter", "2", "--max_steps", "1")
+    assert result["steps"] == 1 and all(np.isfinite(list(seen["metrics"][0].values())))
+    cfg, trunk = seen["cfg"], seen["state"].model.backbone
+    rows = seen["draws"][0].contrast.tie.shape[0]
+    if key == "Loss.sup_loss":
+        assert (cfg.sup_loss, cfg.ohem_min_kept_per_image, seen["ohem"]) == ("ohem", 64, 1)
+    else:
+        assert cfg.sup_loss == "ce" and seen["ohem"] == 0
+    # the contrastive draws are sized from the model: 9 x 9 at 32 under the deep stem
+    assert trunk.deep_stem == (key == "Network.backbone")
+    assert rows == 2 * 2 * (81 if trunk.deep_stem else 64)
+    assert cfg.fused_forward == (key == "Training_Setting.fused_forward")
+    assert seen["bn_groups"] == ({2} if cfg.fused_forward else {1})   # the student's passes
+    assert (trunk.remat, trunk.remat_policy) == (
+        ((2,), "save_mid") if key == "Network.remat" else (False, "nothing"))
+
+
+@pytest.mark.parametrize("setting,want", [({"Network.remat": 2}, (2,)),
+                                          ({"Network.remat": [1, 3]}, (1, 3)),
+                                          ({"Network.remat": False, "Dataset.crop_size": [769, 769]},
+                                           False),
+                                          ({"Dataset.crop_size": [512, 512]}, False),
+                                          ({"Dataset.crop_size": [513, 513]}, True)])
+def test_remat_setting_reads_as_css_tpu_does(tmp_path, setting, want):
+    """``Network.remat``: one stage index (not ``bool(2)``), a list of
+    indices or a bool; unset, on for crops above 512^2."""
+    cfg = load_config(_tiny_yaml(tmp_path, **setting))
+    args = entries.ori_pseudo_parser().parse_args(["--device", "cpu", "--total_iter", "4"])
+    state, _, _, _ = train_main._build_state_and_steps(cfg, args, torch.device("cpu"))
+    assert state.model.backbone.remat == want
 
 
 def test_is_available_false_turns_the_contrast_off(tmp_path):

@@ -51,6 +51,8 @@ def _close_m(got, want):
 @pytest.mark.parametrize("q,d,n,dead,thinned", [
     (256, 256, 262144, 0.5, False),   # main-path shape, dead unlabeled half
     (256, 256, 262144, 0.5, True),    # main-path shape, thinned multiplicities
+    (256, 256, 297992, 0.5, True),    # Cityscapes table (8 x 193^2 rows), thinned: a
+                                      # multiple of neither the 64-row tile nor 2048
     (16, 128, 4 * 2048, 0.5, False),  # dead tiles at the TPU test's shape
     (13, 48, 500, 0.0, False),        # odd Q and D, ragged N
     (64, 64, 65, 0.0, False),         # one row past a tile
@@ -148,7 +150,8 @@ def test_kernels_match_plain_live_patterns(cuda, q, d, n, pattern):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,pattern", [
-    (262_144, "scattered"), (262_144, "run:131072:131072"), (5_000, "all"),
+    (262_144, "scattered"), (262_144, "run:131072:131072"), (297_992, "scattered"),
+    (297_992, "run:297900:92"), (5_000, "all"),
     (100_000, "single"), (4_096, "run:0:0"), (2_049, "run:2040:9")])
 def test_compaction_matches_nonzero(cuda, n, pattern):
     w = _live_weights(n, pattern, seed=n).to(cuda)

@@ -38,7 +38,8 @@ from css_tpu_torch.models.convert import from_jax_variables
 from css_tpu_torch.models.deeplabv3 import build_model
 from css_tpu_torch.train.draws import StepDraws
 from css_tpu_torch.train.state import create_train_state
-from css_tpu_torch.train.train_step import StepConfig, make_train_step, rep_hw
+from css_tpu_torch.models.resnet import resnet_tiny
+from css_tpu_torch.train.train_step import StepConfig, make_train_step
 from tests.test_torch_augment import replay_batch_transform, replay_mix
 from tests.test_torch_losses import replay_contrast
 
@@ -59,12 +60,13 @@ STEP1_PARAM_ATOL = 2e-2
 STEP1_STAT_ATOL = 5e-2
 
 
-def replay_step_draws(rng, step, cfg: JaxStepConfig, bl, bu) -> StepDraws:
-    """The draws of css_tpu's ``step(state, batch, rng, ...)`` at ``step``."""
+def replay_step_draws(rng, step, cfg: JaxStepConfig, bl, bu, deep_stem=False) -> StepDraws:
+    """The draws of css_tpu's ``step(state, batch, rng, ...)`` at ``step``,
+    for the tiny trunk's output size (plain or deep stem)."""
     rng = jax.random.fold_in(rng, step)
     k_laug, k_ucrop, k_teacher, k_contrast = jax.random.split(rng, 4)
     k_t, k_mix, k_aug2 = jax.random.split(k_teacher, 3)
-    h, w = rep_hw(cfg.crop_hw)
+    h, w = resnet_tiny(deep_stem=deep_stem).low_level_hw(cfg.crop_hw)
     return StepDraws(
         l_aug=replay_batch_transform(k_laug, bl, cfg.scale_range, True),
         u_crop=replay_batch_transform(k_ucrop, bu, (1.0, 1.0), False),
@@ -164,9 +166,15 @@ def test_step_refuses_paths_not_ported():
         for mix_mode in ("none", "cutout", "cutmix", "classmix"):
             assert callable(make_train_step(StepConfig(**CFG, strategy=strategy,
                                                        mix_mode=mix_mode)))
+    # ported: OHEM and the fused forward (tests/test_torch_cityscapes_step.py)
+    for strategy in ("ori", "mix", "cross"):
+        assert callable(make_train_step(StepConfig(**CFG, strategy=strategy, sup_loss="ohem",
+                                                   fused_forward=True)))
     with pytest.raises(ValueError, match="strategy"):
         make_train_step(StepConfig(**CFG, strategy="bogus"))
     with pytest.raises(ValueError, match="mix mode"):
         make_train_step(StepConfig(**CFG, mix_mode="bogus"))
+    with pytest.raises(ValueError, match="sup_loss"):
+        make_train_step(StepConfig(**CFG, sup_loss="focal"))
     with pytest.raises(NotImplementedError, match="negative_mode"):
         make_train_step(StepConfig(**CFG, negative_mode="expected"))
