@@ -75,7 +75,33 @@ exit code, and no result line:
    a host synchronisation against the CPU, and the ``ori`` entry point on
    the shipped YAML (``--synthetic --num_labels 8 --total_iter 2
    --max_steps 2``: 2 steps and an eval) with finite losses, every valid
-   label pixel counted and 38 launches per kernel.
+   label pixel counted and 38 launches per kernel;
+10. distributed: data parallelism (``css_tpu_torch/parallel``), in three
+   parts.  (1) World size 1 over NCCL, in this process, at the VOC width:
+   the shipped VOC YAML's ``ori`` step through ``_build_state_and_steps``
+   with cross-replica BN and the step's all-reduces; its first step's
+   losses are held against the non-distributed step from the same state
+   copy and the same draws (rtol 1e-2: cuDNN may pick other algorithms),
+   and the two states after it are compared by SHA-256 and printed (not
+   checked, for the same reason), beside the plain step run twice from that
+   copy; then 1 warm-up + ``--steps`` timed steps
+   with 21 launches per kernel a step, ms/step beside the train phase's
+   bare step and the peak; then one step at ``un_threshold`` 0 (every pixel
+   passes) against the same step at 0.97, from copies of one state: the
+   unsupervised loss must be finite and nonzero, and the student's gradient
+   norm must differ.  (2) Two ranks
+   through the driver's launcher (``parallel.spawn`` running
+   ``train_main.train_on``) on the shipped VOC YAML, ``--synthetic``: 3
+   steps and an eval, in a temporary directory; with two or more cards NCCL,
+   one card each, at the YAML's b8 + 8 per rank; with one card both ranks on
+   it over gloo (NCCL refuses two ranks on one GPU) at b4 + 4 per rank, the
+   recipe's global batch.  It fails unless the losses are finite, the ranks'
+   final states are bit-equal (a SHA-256 each), only rank 0 wrote the log
+   and the checkpoints, the eval matrix counts the valid label pixels of
+   both shards and each rank launched each kernel 21 times a step; each
+   rank prints where its time went (the steps' start times, the eval and
+   the saves).  (3) A one-process run resumes from (2)'s ``last_model`` and
+   must start at its step with its prototypes, bit-equal.
 
 The output ends with one JSON line of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -107,6 +133,8 @@ PEAK_GIB_LIMIT = 33.213         # the step's peak before the live-row compaction
 STRATEGIES_PEAK_GIB_LIMIT = 33.232   # the phase's first reading (33.132 GiB) + 0.1 GiB
 CITY_PEAK_GIB_LIMIT = 37.930    # the fused step's first reading (37.830 GiB) + 0.1 GiB
 CITY_YAML = "CityScapes_config_baseline.yaml"
+VOC_YAML = "VOC_config_baseline.yaml"
+DIST_LOSS_RTOL = 1e-2           # world-1 NCCL step vs the plain step: cuDNN's picks may differ
 
 
 def _smi() -> str:
@@ -337,6 +365,19 @@ def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: st
     return ms, peak, launches
 
 
+def _voc_batch(torch, bsz: int, crop: int, c: int):
+    """The train phase's synthetic VOC batch, on the card."""
+    g_cpu = torch.Generator().manual_seed(0)
+    batch = {
+        "l_image": torch.rand(bsz, crop, crop, 3, generator=g_cpu),
+        "l_label": torch.randint(0, c, (bsz, crop, crop), generator=g_cpu, dtype=torch.int32),
+        "l_valid_hw": torch.full((bsz, 2), crop, dtype=torch.int32),
+        "u_image": torch.rand(bsz, crop, crop, 3, generator=g_cpu),
+        "u_valid_hw": torch.full((bsz, 2), crop, dtype=torch.int32),
+    }
+    return {k: v.cuda() for k, v in batch.items()}
+
+
 def train_phase(torch, ck, steps: int, profile: bool):
     from css_tpu_torch.models.deeplabv3 import build_model
     from css_tpu_torch.train.draws import sample_step_draws
@@ -349,16 +390,7 @@ def train_phase(torch, ck, steps: int, profile: bool):
     state = create_train_state(model, c, 256, base_lr=6.4e-3, weight_decay=5e-4,
                                total_steps=80_000, device="cuda")
     step = make_train_step(cfg)
-
-    g_cpu = torch.Generator().manual_seed(0)
-    batch = {
-        "l_image": torch.rand(bsz, crop, crop, 3, generator=g_cpu),
-        "l_label": torch.randint(0, c, (bsz, crop, crop), generator=g_cpu, dtype=torch.int32),
-        "l_valid_hw": torch.full((bsz, 2), crop, dtype=torch.int32),
-        "u_image": torch.rand(bsz, crop, crop, 3, generator=g_cpu),
-        "u_valid_hw": torch.full((bsz, 2), crop, dtype=torch.int32),
-    }
-    batch = {k: v.cuda() for k, v in batch.items()}
+    batch = _voc_batch(torch, bsz, crop, c)
     g = torch.Generator(device="cuda").manual_seed(1)
     h, w = state.model.output_hw(cfg.crop_hw)
 
@@ -513,7 +545,7 @@ class _DriverProbe:
         self.new_run()
 
     def new_run(self):
-        self.start, self.step_ends, self.counts = None, [], []
+        self.start, self.step_ends, self.step_at, self.counts = None, [], [], []
 
     def __enter__(self):
         for name in self.NAMES:
@@ -530,6 +562,7 @@ class _DriverProbe:
         def probed(state, batch, draws, *args):
             if self.start is None:
                 self.start = (state.step, state.prototypes.clone())
+            self.step_at.append(time.perf_counter())
             self.step_args.append(args)
             if len(self.losses) == self.profile_step_index:
                 out = []
@@ -556,6 +589,8 @@ class _DriverProbe:
         return probed
 
     def _evaluate(self, *args, **kw):
+        """Over more than one rank the matrix holds every rank's shard: its
+        total is checked by the caller against the ranks' pixel counts."""
         self.torch.cuda.synchronize()
         first = len(self.counts)
         t0 = time.perf_counter()
@@ -563,10 +598,12 @@ class _DriverProbe:
         seconds = time.perf_counter() - t0
         counts = [[int(x) for x in c] for c in self.counts[first:]]
         total, pixels, images = (sum(c[i] for c in counts) for i in range(3))
-        if int(cm.mat.sum()) != pixels or total != pixels:
+        sharded = self.torch.distributed.is_initialized()
+        if total != pixels or (int(cm.mat.sum()) != pixels and not sharded):
             raise RuntimeError(f"eval: confusion-matrix total {int(cm.mat.sum())} (batch deltas "
                                f"{total}) vs {pixels} valid label pixels in the crops")
-        self.evals.append(dict(seconds=seconds, images=images, pixels=pixels, miou=cm.miou))
+        self.evals.append(dict(seconds=seconds, images=images, pixels=pixels, miou=cm.miou,
+                               total=int(cm.mat.sum())))
         return cm
 
     def save_checkpoint(self, path, *args, **kw):
@@ -868,7 +905,242 @@ def cityscapes_phase(torch, ck, smi: str, steps: int, profile: bool):
     return launches
 
 
+def _grad_norm(torch, module) -> float:
+    return torch.linalg.vector_norm(torch.stack(
+        [p.grad.norm() for p in module.parameters() if p.grad is not None])).item()
+
+
+def _world_one(torch, ck, smi: str, steps: int, train_ms: float, profile: bool):
+    """Part 1 of the distributed phase, inside a 1-rank NCCL group."""
+    import copy
+    import dataclasses
+
+    from css_tpu_torch.cli import entries, train_main
+    from css_tpu_torch.config import CONFIG_DIR, load_config
+    from css_tpu_torch.models.deeplabv3 import set_distributed
+    from css_tpu_torch.models.resnet import GroupedBatchNorm
+    from css_tpu_torch.train.checkpoint import state_sha256
+    from css_tpu_torch.train.draws import sample_step_draws
+    from css_tpu_torch.train.train_step import make_train_step
+
+    cfg = load_config(os.path.join(CONFIG_DIR, VOC_YAML))
+    args = entries.ori_pseudo_parser().parse_args(["--synthetic"])
+    state, step_cfg, step, _ = train_main._build_state_and_steps(
+        cfg, args, torch.device("cuda"), "ori", distributed=True)
+    bns = [m for m in state.model.modules() if isinstance(m, GroupedBatchNorm)]
+    teacher_bns = [m for m in state.teacher.modules() if isinstance(m, GroupedBatchNorm)]
+    if not (step_cfg.distributed and all(m.distributed for m in bns + teacher_bns)):
+        raise RuntimeError("distributed: the builder did not make a cross-replica model and step")
+    c, bsz = step_cfg.num_classes, cfg.require("Dataset.batch_size")
+    batch = _voc_batch(torch, bsz, step_cfg.crop_hw[0], c)
+    h, w = state.model.output_hw(step_cfg.crop_hw)
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def draws():
+        return sample_step_draws(g, step_cfg, bsz, bsz, 2 * bsz * h * w)
+
+    # step 1: the distributed step against the plain one, same state and
+    # draws; the plain step twice shows how far the card repeats itself
+    first = draws()
+    plain, again = copy.deepcopy(state), copy.deepcopy(state)
+    for st in (plain, again):
+        set_distributed(st.model, False)
+        set_distributed(st.teacher, False)
+    plain_step = make_train_step(dataclasses.replace(step_cfg, distributed=False))
+    m_plain = {k: v.item() for k, v in plain_step(plain, batch, first, 1.0)[1].items()}
+    plain_step(again, batch, first, 1.0)
+    m_dist = {k: v.item() for k, v in step(state, batch, first, 1.0)[1].items()}
+    gaps = {k: abs(m_dist[k] - m_plain[k]) / max(abs(m_plain[k]), 1e-12) for k in m_plain}
+
+    def compare(a, b):   # reported, not checked: cuDNN may pick other algorithms
+        gap = max((p - q).abs().max().item()
+                  for p, q in zip(a.model.parameters(), b.model.parameters()))
+        return (f"bit-equal {state_sha256(a) == state_sha256(b)}, largest student parameter "
+                f"gap {gap:.3e}")
+
+    print(f"distributed world 1: step 1 losses {json.dumps(m_dist)} vs the plain step "
+          f"{json.dumps(m_plain)}, relative gaps {json.dumps(gaps)}; states after the step "
+          f"(student, teacher, BN stats, momentum, prototypes): distributed vs plain "
+          f"{compare(state, plain)}; plain vs plain again {compare(again, plain)}", flush=True)
+    del plain, again, st
+    for k in m_plain:
+        if not (math.isfinite(m_dist[k]) and abs(m_dist[k] - m_plain[k])
+                <= DIST_LOSS_RTOL * abs(m_plain[k]) + 1e-6):
+            raise RuntimeError(f"distributed world 1: {k} {m_dist[k]} vs plain {m_plain[k]}")
+
+    def one_step():
+        return step(state, batch, draws(), 1.0)[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    ms, peak, launches = _timed_steps(torch, ck, one_step, 1, steps, c, "distributed world 1")
+    print(f"distributed world 1 (NCCL, {smi}): {ms:.3f} ms/step vs the train phase's bare step "
+          f"{train_ms:.3f} ms/step ({ms / train_ms:.4f}x), peak memory {peak:.3f} GiB", flush=True)
+    if profile:
+        profile_step(torch, one_step, "distributed world 1 profile")
+
+    # the unsupervised loss's gradient path: every pixel passes at threshold 0
+    thr_draws = draws()
+    out = {}
+    for thr in (0.0, 0.97):
+        copy_ = copy.deepcopy(state)
+        thr_step = make_train_step(dataclasses.replace(step_cfg, un_threshold=thr))
+        metrics = thr_step(copy_, batch, thr_draws, 1.0)[1]
+        out[thr] = (metrics["unsup"].item(), metrics["total"].item(),
+                    _grad_norm(torch, copy_.model))
+        del copy_
+    (unsup0, total0, norm0), (unsup97, total97, norm97) = out[0.0], out[0.97]
+    print(f"distributed world 1 un_threshold 0: unsup {unsup0:.6f}, total {total0:.6f}, student "
+          f"gradient norm {norm0:.6f}; at 0.97: unsup {unsup97:.6f}, total {total97:.6f}, "
+          f"gradient norm {norm97:.6f}", flush=True)
+    if not (math.isfinite(unsup0) and unsup0 > 0 and math.isfinite(norm0) and norm0 != norm97):
+        raise RuntimeError(f"distributed: the unsupervised path at threshold 0 gave unsup "
+                           f"{unsup0}, gradient norm {norm0} (0.97: {norm97})")
+    return launches
+
+
+def _dist_rank(device, argv):
+    """One rank of part 2 of the distributed phase: the driver's per-rank
+    loop under a probe; returns what the parent checks and prints."""
+    import torch
+
+    from css_tpu_torch.cli import entries, train_main
+    from css_tpu_torch.ops.kernels import contrastive_kernels as ck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats(device)
+    with _DriverProbe(torch, train_main) as probe:
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        result = train_main.train_on(device, "ori", entries.ori_pseudo_parser().parse_args(argv))
+        seconds = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+    return dict(rank=torch.distributed.get_rank(), backend=torch.distributed.get_backend(),
+                device=str(device), result=result, launches=launches, seconds=seconds,
+                losses=[{k: v.item() for k, v in m.items()} for m in probe.losses],
+                step_ms=probe.step_ms(), evals=probe.evals,
+                saves=[name for name, _, _ in probe.saves],
+                save_s=[s for _, s, _ in probe.saves],
+                step_at=[t - t0 for t in probe.step_at],
+                peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+
+
+def _two_ranks(torch, workdir: str, smi: str):
+    """Part 2 of the distributed phase."""
+    from css_tpu_torch import parallel
+    from css_tpu_torch.config import CONFIG_DIR, dump_config, load_config
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        backend, devices = "nccl", ["cuda:0", "cuda:1"]
+    else:
+        backend, devices = "gloo", ["cuda:0", "cuda:0"]
+    cfg = load_config(os.path.join(CONFIG_DIR, VOC_YAML))
+    per_rank = cfg.require("Dataset.batch_size") // (1 if cards >= 2 else 2)
+    cfg.set("Dataset.batch_size", per_rank)
+    cfg.set("Training_Setting.save_dir", os.path.join(workdir, "checkpoints"))
+    config = dump_config(cfg, os.path.join(workdir, "two_ranks_yaml"))
+    steps = 3
+    argv = ["--config", config, "--synthetic", "--job_name", "smoke", "--num_labels",
+            str(steps * 2 * per_rank), "--total_iter", str(steps)]
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(_dist_rank, (argv,), 2, backend, devices, workdir=workdir)
+    seconds = time.perf_counter() - t0
+    job = os.path.join(workdir, "checkpoints", "smoke")
+    log = open(os.path.join(job, "train.log")).read()
+    for r in ranks:
+        _check_finite(r["losses"], f"distributed rank {r['rank']}")
+        print(f"distributed rank {r['rank']} ({r['backend']} on {r['device']}, b{per_rank}+"
+              f"{per_rank}, {smi}): {json.dumps(r['result'])}; device-timeline ms between step "
+              f"ends {json.dumps(r['step_ms'])}; {r['seconds']:.3f} s in train_on (steps entered "
+              f"at {json.dumps([round(t, 3) for t in r['step_at']])} s, eval "
+              f"{json.dumps([round(e['seconds'], 3) for e in r['evals']])} s, saves "
+              f"{json.dumps([round(t, 3) for t in r['save_s']])} s); peak memory "
+              f"{r['peak_gib']:.3f} GiB; losses {json.dumps(r['losses'])}; launches "
+              f"{json.dumps(r['launches'])}; saves {r['saves']}", flush=True)
+        if len(r["losses"]) != steps or any(n != 21 * steps for n in r["launches"].values()):
+            raise RuntimeError(f"distributed rank {r['rank']}: {len(r['losses'])} steps, "
+                               f"launches {r['launches']}, want {21 * steps} each")
+        if r["result"]["steps"] != steps or len(r["evals"]) != 1:
+            raise RuntimeError(f"distributed rank {r['rank']}: {r['result']}, {r['evals']}")
+    digests = [r["result"]["state_sha256"][r["rank"]] for r in ranks]
+    if len(set(digests)) != 1:
+        raise RuntimeError(f"distributed: the ranks' states differ: {digests}")
+    if ranks[0]["saves"] != ["best_model", "last_model"] or ranks[1]["saves"]:
+        raise RuntimeError(f"distributed: saves {[r['saves'] for r in ranks]}, want rank 0's only")
+    if log.count("device=") != 1 or log.count("* mIoU") != 1:
+        raise RuntimeError(f"distributed: train.log is not rank 0's alone:\n{log}")
+    pixels = sum(r["evals"][0]["pixels"] for r in ranks)
+    images = sum(r["evals"][0]["images"] for r in ranks)
+    totals = [r["evals"][0]["total"] for r in ranks]
+    if totals != [pixels, pixels]:
+        raise RuntimeError(f"distributed: eval matrix totals {totals}, want {pixels} (the valid "
+                           f"label pixels of both shards)")
+    print(f"distributed two ranks: {backend} on {devices} ({cards} card(s)), b{per_rank}+"
+          f"{per_rank} per rank; {seconds:.3f} s wall for the spawn; states bit-equal (sha256 "
+          f"{digests[0][:16]}); eval counted {pixels} valid label pixels over {images} images "
+          f"of both shards; a correctness run, not a speed reading", flush=True)
+    if cards < 2:
+        print("distributed: one card here, so cross-card NCCL was not run; cross-rank parity "
+              "rests on the CPU gloo tests (tests/test_torch_distributed_*.py)", flush=True)
+    return os.path.join(job, "last_model"), [r["launches"] for r in ranks]
+
+
+def _elastic_resume(torch, workdir: str, last: str):
+    """Part 3 of the distributed phase: one process resumes the 2-rank run."""
+    from css_tpu_torch.cli import entries, train_main
+    from css_tpu_torch.config import CONFIG_DIR
+
+    saved = torch.load(last, map_location="cpu", weights_only=True)
+    args = entries.ori_pseudo_parser().parse_args(
+        ["--config", os.path.join(CONFIG_DIR, VOC_YAML), "--synthetic", "--job_name", "resumed",
+         "--num_labels", "16", "--total_iter", "8", "--max_steps", str(saved["step"] + 1),
+         "--resume", last])
+    cwd = os.getcwd()
+    try:
+        os.chdir(workdir)
+        with _DriverProbe(torch, train_main) as probe:
+            result = train_main.run_training("ori", args)
+    finally:
+        os.chdir(cwd)
+    start_step, start_protos = probe.start
+    if (start_step != saved["step"] or not torch.equal(start_protos.cpu(), saved["prototypes"])
+            or result["steps"] != saved["step"] + 1):
+        raise RuntimeError(f"distributed resume: started at step {start_step} (saved "
+                           f"{saved['step']}), ended at {result['steps']}, prototypes equal "
+                           f"{torch.equal(start_protos.cpu(), saved['prototypes'])}")
+    _check_finite([{k: v.item() for k, v in m.items()} for m in probe.losses], "distributed resume")
+    print(f"distributed resume on one process from the 2-rank last_model: started at step "
+          f"{start_step} with the saved prototypes (bit-equal), {json.dumps(result)}", flush=True)
+
+
+def distributed_phase(torch, ck, smi: str, steps: int, train_ms: float, profile: bool):
+    """Data parallelism: a 1-rank NCCL group at the VOC width, two ranks
+    through the driver's launcher, and a resume at another world size; see
+    the module docstring.  Returns (the world-1 launches, each rank's)."""
+    import shutil
+    import tempfile
+
+    _free(torch)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        torch.distributed.init_process_group(
+            "nccl", init_method="file://" + os.path.join(workdir, "rendezvous"), rank=0,
+            world_size=1)
+        try:
+            launches = _world_one(torch, ck, smi, steps, train_ms, profile)
+        finally:
+            torch.distributed.destroy_process_group()
+        _free(torch)
+        last, rank_launches = _two_ranks(torch, workdir, smi)
+        _elastic_resume(torch, workdir, last)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return launches, rank_launches
+
+
 _CATEGORIES = (   # first match wins, on the lower-cased kernel name
+    ("collectives (NCCL)", ("nccl",)),
     ("contrastive K1/K2 + compaction",
      ("k1_live", "k2_live", "sum_partials", "count_live", "scatter_live")),
     ("convolution", ("conv", "wgrad", "dgrad", "xmma", "cudnn", "nhwc", "nchw")),
@@ -913,6 +1185,8 @@ def profile_step(torch, one_step, label: str = "profile"):
     total = sum(by_name.values())
     print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
           f"{1 - busy / wall_us:.4f}, kernels {len(intervals)}", flush=True)
+    for cat, _ in _CATEGORIES:   # every category, 0 where none ran (NCCL at world size 1)
+        by_cat.setdefault(cat, 0.0)
     for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"{label} category {cat}: {us / 1e3:.3f} ms ({us / total:.4f})", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
@@ -961,6 +1235,7 @@ def main() -> int:
     phase_done("kernels")
     contrastive_phase(torch)
     launches, train = train_phase(torch, ck, args.steps, args.profile)
+    train_ms = train["ms"]
     phase_done("contrastive + train")
     strategies_phase(torch, ck, train, args.steps, args.profile)
     del train
@@ -970,6 +1245,9 @@ def main() -> int:
     phase_done("driver")
     city_launches = cityscapes_phase(torch, ck, smi, args.steps, args.profile)
     phase_done("cityscapes")
+    dist_launches, rank_launches = distributed_phase(torch, ck, smi, args.steps, train_ms,
+                                                     args.profile)
+    phase_done("distributed")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
 
     source = "css_tpu_torch/csrc/" + ck.SOURCE
@@ -980,8 +1258,12 @@ def main() -> int:
                                ("live_rows_compact", "compact", 155)):
         # the VOC train phase's row; the Cityscapes table's beside it
         city = dict(city_kernels[key], n=N_CITY, launches=city_launches[name])
+        # the distributed phase's paths: the 1-rank NCCL steps, each rank's run
+        dist = dict(world_1_launches=dist_launches[name],
+                    rank_launches=[r[name] for r in rank_launches])
         rows.append(dict(name=name, route="cuda", source=source, replaces=f"{tpu}:{line_no}",
-                         launches=launches[name], **kernels[key], cityscapes=city))
+                         launches=launches[name], **kernels[key], cityscapes=city,
+                         distributed=dist))
     line = {"kernels": rows}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -8,7 +8,11 @@
 ``ori`` is the reference's ``ori_pseudo.py`` (logit-space pseudo-labels),
 ``mix`` its ``mix_label.py`` (agreement labels) and ``cross`` its
 ``cross_label.py`` (cross-space supervision after a warmup).  Each runs on
-the card unless ``--device cpu`` is given.
+the card unless ``--device cpu`` is given, on ``--num_devices`` devices (one
+process each; or as one rank of a ``torchrun`` launch):
+
+    python -m css_tpu_torch.cli.entries ori --num_devices 8
+    torchrun --nproc_per_node 8 -m css_tpu_torch.cli.entries ori
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ __all__ = ["ori_pseudo_parser", "ori_pseudo_main", "mix_label_parser", "mix_labe
            "cross_label_parser", "cross_label_main", "main"]
 
 _ORI_DOC = """Baseline entry point: logit-space pseudo-labels (reference
-ori_pseudo.py), on one CUDA device.  CLI-compatible with the reference script;
-its --gpu_id/--world_size/--port flags are accepted and ignored."""
+ori_pseudo.py), on --num_devices CUDA devices.  CLI-compatible with the
+reference script; its --gpu_id/--world_size/--port flags are accepted and
+ignored (--num_devices sets the device count)."""
 
 _MIX_DOC = """Mix-label entry point: collaborative (agreement) pseudo-labels
 (reference mix_label.py).  Pixels where logit-space and representation-space
@@ -42,7 +47,8 @@ def _parser(strategy: str, doc: str, default_job: str) -> argparse.ArgumentParse
     parser = argparse.ArgumentParser(prog=f"css_tpu_torch.cli.entries {strategy}",
                                      description=doc)
     add_common_args(parser, default_job=default_job)
-    # accepted for reference-CLI compatibility; the port runs one device
+    # accepted for reference-CLI compatibility and ignored: --num_devices
+    # (or torchrun) sets the ranks
     for flag in ("--gpu_id", "--world_size", "--port"):
         parser.add_argument(flag, type=str, default="")
     return parser

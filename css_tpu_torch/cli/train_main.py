@@ -1,6 +1,5 @@
 """Training driver behind the port's entry points (strategies ``ori``,
-``mix`` and ``cross``), counterpart of ``css_tpu/cli/train_main.py`` on one
-device.
+``mix`` and ``cross``), counterpart of ``css_tpu/cli/train_main.py``.
 
 Each epoch pairs every labeled batch with the next batch of an endless
 unlabeled stream.  Host threads decode the batches into numpy canvases
@@ -29,9 +28,28 @@ What the strategies do differently, as the JAX driver does:
   another run's checkpoint.
 
 Random draws are functions of counters, not of a run's history: step ``s``
-draws from a generator seeded by ``(Seed + 1, s)``, so a resumed run draws
-for step ``s`` what an uninterrupted run draws; eval ``e`` (the epoch) crops
-batch ``b`` with a generator seeded by ``(Seed, e, b)``.
+on rank ``r`` draws from a generator seeded by ``(Seed + 1, s, r)``, so a
+resumed run draws for step ``s`` what an uninterrupted run at its world size
+draws; eval ``e`` (the epoch) crops batch ``b`` with a generator seeded by
+``(Seed, e, b)``.
+
+Data parallelism, as the JAX driver's mesh over ``--num_devices`` devices:
+one process per device.  ``--num_devices N`` > 1 spawns N processes (rank r
+on ``cuda:r`` over NCCL, or on the CPU over gloo with ``--device cpu``);
+under ``torchrun`` each process joins the group its environment describes.
+``Dataset.batch_size`` is the per-device batch: each rank's loaders take
+their shard of every split (the synthetic splits are sized from the global
+batch), the model's BatchNorms take cross-replica statistics, and the step
+averages the gradients and losses over the ranks (``train/train_step.py``).
+Rank 0's state is broadcast once after the build and the resume; a
+checkpoint written at one world size resumes at any other.  Each rank
+evaluates its shard of the validation split, and the confusion matrix is
+summed over the ranks once.  Only rank 0 writes ``config.yaml``,
+``train.log``, the TensorBoard scalars and the checkpoints.  SIGTERM is
+polled across the ranks every ``Training_Setting.preempt_check_every``
+steps (default 10), so all ranks leave at the same step.  A run over more
+than one rank ends by checking that every rank holds the same state (a
+SHA-256 of it per rank, in the result).
 
 The recipe's network and loss settings come from the YAML as the JAX
 driver reads them: ``Network.backbone`` (``resnet101``, ``resnet101_stem``,
@@ -43,7 +61,7 @@ classes, else ``ce``) with ``Loss.ohem_thresh`` and
 
 What the JAX driver supports and the port does not yet is refused by name
 (``NotImplementedError``), never run as something else: the uint8
-augmentation law, other negative modes, and more than one device.
+augmentation law and the other negative modes.
 """
 
 from __future__ import annotations
@@ -54,14 +72,15 @@ import time
 import numpy as np
 import torch
 
-from css_tpu_torch import resolve_device
+from css_tpu_torch import parallel, resolve_device
 from css_tpu_torch.config import CONFIG_DIR, dump_config, load_config
 from css_tpu_torch.data import BatchLoader, InfiniteLoader, build_dataset_specs, read_split_lists
 from css_tpu_torch.models.convert import load_torchvision_backbone
 from css_tpu_torch.models.deeplabv3 import build_model
 from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet, to_channel_first,
                                        to_channel_last)
-from css_tpu_torch.train.checkpoint import load_prototypes, restore_checkpoint, save_checkpoint
+from css_tpu_torch.train.checkpoint import (load_prototypes, restore_checkpoint, save_checkpoint,
+                                            state_sha256)
 from css_tpu_torch.train.draws import sample_augment_draws, sample_step_draws
 from css_tpu_torch.train.schedulers import rampdown_value
 from css_tpu_torch.train.state import create_train_state
@@ -71,7 +90,7 @@ from css_tpu_torch.utils import ConfusionMatrix, Logger, ScalarWriter
 from css_tpu_torch.utils.preempt import PreemptionGuard
 from css_tpu_torch.utils.profiling import StepTimer, maybe_profile
 
-__all__ = ["run_training", "add_common_args"]
+__all__ = ["run_training", "train_on", "add_common_args"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -94,7 +113,8 @@ def add_common_args(parser, default_job: str):
     parser.add_argument("--txt_dir", type=str, default=None)
     parser.add_argument("--synthetic", action="store_true",
                         help="train on synthetic data (no dataset required)")
-    parser.add_argument("--num_devices", type=int, default=None)
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="devices to train on, one process each (default 1)")
     parser.add_argument("--profile_dir", type=str, default=None)
     parser.add_argument("--max_steps", type=int, default=None,
                         help="hard cap on optimizer steps (debug/smoke)")
@@ -111,7 +131,6 @@ def _refuse_unported(cfg, args) -> None:
     checks = [   # (setting, value, ported, queue item)
         ("Training_Setting.aug_quantize", quantize, not quantize, 15),
         ("Loss.negative_mode", negative_mode, negative_mode == "sampled_pallas", 15),
-        ("--num_devices", args.num_devices, args.num_devices in (None, 1), 14),
     ]
     for name, value, ported, item in checks:
         if not ported:
@@ -155,7 +174,10 @@ def _remat_setting(value):
     return bool(value)
 
 
-def _build_state_and_steps(cfg, args, device, strategy: str = "ori"):
+def _build_state_and_steps(cfg, args, device, strategy: str = "ori", distributed: bool = False):
+    """The train state on ``device``, the step config, the train step and
+    the eval step, as the YAML and the flags say; ``distributed``: the model
+    and the step reduce over the default process group."""
     num_classes = cfg.require("Network.num_class")
     output_dim = cfg.get("Network.output_dim", 256)
     crop = tuple(cfg.require("Dataset.crop_size"))
@@ -165,7 +187,8 @@ def _build_state_and_steps(cfg, args, device, strategy: str = "ori"):
                         # by crop area, the quantity that sets activation memory
                         remat=_remat_setting(cfg.get("Network.remat",
                                                      crop[0] * crop[1] > 512 * 512)),
-                        remat_policy=cfg.get("Network.remat_policy", "nothing"))
+                        remat_policy=cfg.get("Network.remat_policy", "nothing"),
+                        distributed=distributed)
     pretrained = cfg.get("Network.pretrained", "./pretrained/resnet101.pth")
     if pretrained and os.path.exists(pretrained):
         sd = torch.load(pretrained, map_location="cpu", weights_only=True)
@@ -184,6 +207,7 @@ def _build_state_and_steps(cfg, args, device, strategy: str = "ori"):
         scale_range=tuple(cfg.require("Dataset.scale_size")),
         strategy=strategy,
         mix_mode=cfg.get("Dataset.mix_mode", "cutmix"),
+        mix_partner=cfg.get("Distributed.mix_partner", "reference"),
         # by the class count (19: the Cityscapes taxonomy), not Dataset.name,
         # which --synthetic rewrites
         sup_loss=cfg.get("Loss.sup_loss", "ohem" if num_classes == 19 else "ce"),
@@ -201,12 +225,16 @@ def _build_state_and_steps(cfg, args, device, strategy: str = "ori"):
         contrast_enabled=bool(cfg.get("Loss.is_available", True)),
         negative_mode=cfg.get("Loss.negative_mode", "sampled_pallas"),
         fused_forward=bool(cfg.get("Training_Setting.fused_forward", False)),
+        distributed=distributed,
     )
     return (state, step_cfg, make_train_step(step_cfg),
             make_eval_step(state.teacher, num_classes))
 
 
-def _make_loaders(cfg, args, batch_size: int):
+def _make_loaders(cfg, args, batch_size: int, num_shards: int = 1, shard_index: int = 0):
+    """Train (labeled, unlabeled) and validation loaders of ``batch_size``
+    (per device) over shard ``shard_index`` of ``num_shards``; the synthetic
+    splits are sized from the global batch."""
     name = cfg.require("Dataset.name")
     num_classes = cfg.require("Network.num_class")
     canvas = tuple(cfg.get("Dataset.canvas_size", cfg.require("Dataset.crop_size")))
@@ -214,16 +242,18 @@ def _make_loaders(cfg, args, batch_size: int):
         name, cfg.get("Dataset.data_dir", ""), canvas, num_classes,
         cache_dir=cfg.get("Dataset.cache_dir", None) or None)
     seed = cfg.get("Seed", 3407)
+    global_batch = batch_size * num_shards
     if name == "Synthetic":
-        labeled = [f"l{i}" for i in range(max(args.num_labels, batch_size))]
-        unlabeled = [f"u{i}" for i in range(max(batch_size * 8, 64))]
-        test = [f"v{i}" for i in range(batch_size * 2)]
+        labeled = [f"l{i}" for i in range(max(args.num_labels, global_batch))]
+        unlabeled = [f"u{i}" for i in range(max(global_batch * 8, 64))]
+        test = [f"v{i}" for i in range(global_batch * 2)]
     else:
         labeled, unlabeled, test = read_split_lists(cfg.require("Dataset.txt_dir"),
                                                     args.num_labels, seed)
 
     def mk(ids, spec, shuffle, drop):
-        return BatchLoader(spec, ids, batch_size, seed=seed, shuffle=shuffle, drop_last=drop)
+        return BatchLoader(spec, ids, batch_size, seed=seed, shuffle=shuffle, drop_last=drop,
+                           num_shards=num_shards, shard_index=shard_index)
 
     return (mk(labeled, train_spec, True, True), mk(unlabeled, train_spec, True, True),
             mk(test, test_spec, False, False))
@@ -280,7 +310,8 @@ def _evaluate(eval_step, test_loader, crop, num_classes: int, seed: int, eval_in
               device: torch.device) -> ConfusionMatrix:
     """Teacher eval: one random crop of each validation image (the
     reference's test protocol), the confusion matrix accumulated on the
-    device and read once at the end."""
+    device, summed over the ranks (each evaluates its shard) and read once
+    at the end."""
     mat = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     for bi, batch in enumerate(_device_prefetch(test_loader, device)):
         img = to_channel_first(batch["image"].float() / 255.0)
@@ -293,6 +324,8 @@ def _evaluate(eval_step, test_loader, crop, num_classes: int, seed: int, eval_in
                                           batch["valid_hw"], crop, **draws.as_kwargs())
         mat = eval_step(mat, to_channel_last(normalize_imagenet(img_c)), lab_c[:, 0],
                         batch["valid"])
+    if parallel.is_initialized():
+        mat = parallel.all_reduce_sum(mat)
     cm = ConfusionMatrix(num_classes)
     cm.update(mat.cpu().numpy())
     return cm
@@ -312,36 +345,70 @@ def _contrast_weight(cfg, args, strategy: str, epoch: int) -> float:
 
 def run_training(strategy: str, args) -> dict:
     """Trains ``strategy`` as ``args`` (the entry point's flags) say; returns
-    ``{"best_miou", "steps", "preempted", "steps_per_sec"}``."""
+    ``{"best_miou", "steps", "preempted", "steps_per_sec"}`` (rank 0's; in
+    a process group also ``world_size`` and each rank's ``state_sha256``).
+
+    Under ``torchrun`` this process trains as its rank; with
+    ``--num_devices N`` > 1 it starts N processes, one per device, and
+    returns rank 0's result; otherwise it trains here, on one device."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r} (one of {STRATEGIES})")
+    if parallel.launched_by_torchrun() and not parallel.is_initialized():
+        device = parallel.init_from_env(torch.device(args.device).type)
+        try:
+            return train_on(device, strategy, args)
+        finally:
+            torch.distributed.destroy_process_group()
     device = resolve_device(args.device)
+    world = 1 if args.num_devices is None else args.num_devices
+    if world < 1:
+        raise ValueError(f"--num_devices {world}: need at least one device")
+    if world == 1:
+        return train_on(device, strategy, args)
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"--num_devices {world} exceeds the {torch.cuda.device_count()} "
+                         f"CUDA devices of this host")
+    _refuse_unported(load_config(args.config), args)   # before any process starts
+    devices = ([f"cuda:{r}" for r in range(world)] if device.type == "cuda"
+               else ["cpu"] * world)
+    return parallel.spawn(train_on, (strategy, args), world, parallel.backend_for(device),
+                          devices)[0]
+
+
+def train_on(device: torch.device, strategy: str, args) -> dict:
+    """The training loop of one rank on ``device`` (of the default process
+    group when there is one; alone otherwise); returns its result."""
     cfg = load_config(args.config)
     _refuse_unported(cfg, args)
     _apply_cli_shadows(cfg, args, strategy)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
 
+    distributed = parallel.is_initialized()
+    rank, world = parallel.rank(), parallel.world_size()
     seed = cfg.get("Seed", 3407)
-    batch_size = cfg.require("Dataset.batch_size")
+    batch_size = cfg.require("Dataset.batch_size")      # per device
     save_dir = os.path.join(cfg.get("Training_Setting.save_dir", "./checkpoints"),
                             str(args.job_name))
-    log = Logger(os.path.join(save_dir, "train.log"))
-    tb = ScalarWriter(os.path.join(save_dir, "tb"))
-    guard = PreemptionGuard()
+    log = Logger(os.path.join(save_dir, "train.log"), rank=rank)
+    tb = ScalarWriter(os.path.join(save_dir, "tb"), rank=rank)
+    guard = PreemptionGuard(cfg.get("Training_Setting.preempt_check_every", 10), device)
     loaders = ()
     try:
-        dump_config(cfg, save_dir)
-        log.info(f"device={device} strategy={strategy} batch={batch_size}+{batch_size}")
+        if rank == 0:
+            dump_config(cfg, save_dir)
+        log.info(f"device={device} strategy={strategy} batch={batch_size}+{batch_size}"
+                 + (f" per rank, {world} ranks" if distributed else ""))
         state, step_cfg, train_step, eval_step = _build_state_and_steps(cfg, args, device,
-                                                                        strategy)
-        loaders = train_l, train_u, test_loader = _make_loaders(cfg, args, batch_size)
+                                                                        strategy, distributed)
+        loaders = train_l, train_u, test_loader = _make_loaders(cfg, args, batch_size, world,
+                                                                rank)
         if len(train_l) == 0:
             # drop_last leaves no batch: the epoch loop would run no step
             raise ValueError(
                 f"labeled split too small: {args.num_labels} labels make fewer than one "
-                f"batch of {batch_size} (drop_last). Lower Dataset.batch_size or raise "
-                f"--num_labels.")
+                f"batch of {batch_size} per rank over {world} rank(s) (drop_last). Lower "
+                f"Dataset.batch_size or raise --num_labels.")
         steps_per_epoch = len(train_l)
         total_epoch = max(int(args.total_iter / steps_per_epoch), 1)
         log.info(f"total epochs: {total_epoch} ({steps_per_epoch} steps/epoch)")
@@ -361,6 +428,9 @@ def run_training(strategy: str, args) -> dict:
                 log.info(f"prototypes seeded from {proto_resume}")
             else:
                 log.info(f"WARNING --prototypes_resume {proto_resume} does not exist; ignored")
+        if distributed:   # one state on every rank, as JAX's replicated state
+            parallel.broadcast_(list(state.model.state_dict().values())
+                                + list(state.teacher.state_dict().values()) + [state.prototypes])
         warmup = getattr(args, "warmup", 0)
 
         h, w = state.model.output_hw(step_cfg.crop_hw)
@@ -374,15 +444,16 @@ def run_training(strategy: str, args) -> dict:
             weight = _contrast_weight(cfg, args, strategy, epoch)
             use_rep = strategy == "cross" and epoch >= warmup
             with maybe_profile(args.profile_dir, epoch == start_epoch):
-                for batch in _device_prefetch(_epoch_batches(train_l, u_iter), device):
-                    draws = sample_step_draws(_generator(device, seed + 1, state.step),
+                batches = _device_prefetch(_epoch_batches(train_l, u_iter), device)
+                for si, batch in enumerate(batches):
+                    draws = sample_step_draws(_generator(device, seed + 1, state.step, rank),
                                               step_cfg, batch_size, batch_size, rep_pixels)
                     state, metrics = train_step(state, batch, draws, weight, use_rep)
                     timer.tick()
                     if args.max_steps and state.step >= args.max_steps:
                         done = True
                         break
-                    if guard.should_stop():
+                    if guard.should_stop(si):
                         preempted = done = True
                         break
 
@@ -390,7 +461,9 @@ def run_training(strategy: str, args) -> dict:
                 # skip eval; saved with this epoch so --resume replays it
                 log.info(f"SIGTERM: preemption checkpoint at epoch {epoch} step "
                          f"{state.step}; exiting cleanly")
-                save_checkpoint(os.path.join(save_dir, "last_model"), state, epoch, best_miou)
+                if rank == 0:
+                    save_checkpoint(os.path.join(save_dir, "last_model"), state, epoch,
+                                    best_miou)
                 break
 
             if not (strategy == "ori" or epoch % 20 == 0 or epoch > total_epoch - 50 or done
@@ -407,13 +480,15 @@ def run_training(strategy: str, args) -> dict:
             log.info(f"Epoch:{epoch} * mIoU {miou:.4f} Best_mIoU {best_miou:.4f} "
                      f"loss {m['total']:.4f} (sup {m['sup']:.4f} unsup {m['unsup']:.4f} "
                      f"contrast {m['contrast']:.4f}) {timer.summary()} Time {time.asctime()}")
-            if miou >= best_miou:
-                save_checkpoint(os.path.join(save_dir, "best_model"), state, epoch + 1, miou)
-            # rolling recovery point, stamped with the best mIoU so that a
-            # resume cannot lower the bar for best_model
-            if epoch % 10 == 0 or done or epoch == total_epoch - 1:
-                save_checkpoint(os.path.join(save_dir, "last_model"), state, epoch + 1,
-                                best_miou)
+            if rank == 0:
+                if miou >= best_miou:
+                    save_checkpoint(os.path.join(save_dir, "best_model"), state, epoch + 1,
+                                    miou)
+                # rolling recovery point, stamped with the best mIoU so that
+                # a resume cannot lower the bar for best_model
+                if epoch % 10 == 0 or done or epoch == total_epoch - 1:
+                    save_checkpoint(os.path.join(save_dir, "last_model"), state, epoch + 1,
+                                    best_miou)
             if done:
                 break
     finally:
@@ -422,7 +497,14 @@ def run_training(strategy: str, args) -> dict:
             loader.close()
         log.close()
         tb.close()
-    return {"best_miou": best_miou, "steps": state.step, "preempted": preempted,
-            # steady-state wall rate of the whole loop (decode, copy, step),
-            # the first interval left out
-            "steps_per_sec": timer.steps_per_sec}
+    result = {"best_miou": best_miou, "steps": state.step, "preempted": preempted,
+              # steady-state wall rate of the whole loop (decode, copy, step),
+              # the first interval left out
+              "steps_per_sec": timer.steps_per_sec}
+    if distributed:
+        digests = [None] * world
+        torch.distributed.all_gather_object(digests, state_sha256(state))
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the ranks' states differ after training: {digests}")
+        result.update(world_size=world, state_sha256=digests)
+    return result

@@ -13,6 +13,10 @@ All C classes run every step; classes without a hard anchor or without
 pixels contribute 0.  The loss is the sum over classes divided by the number
 of locally valid classes, or 0 when fewer than two are valid.
 
+``distributed`` True: the prototype update takes the per-class sums and
+counts over all ranks (one all-reduce of a [C, D + 1] tensor); anchors,
+negatives and the valid-class count stay per rank, as in the JAX loss.
+
 The random inputs arrive as tensors (``ContrastDraws`` in train/draws.py):
 24-bit tie-break keys ``tie`` [N], anchor uniforms ``u1`` [C, Q], and the
 uniforms of the thinned multiplicities ``u`` [C, N].
@@ -26,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from css_tpu_torch.ops.kernels.contrastive_kernels import weighted_exp_softsum_stochastic
+from css_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = ["prototype_contrastive_loss", "update_prototypes", "grouped_random_order",
            "l2_normalize"]
@@ -63,12 +68,17 @@ def grouped_random_order(cls_id: torch.Tensor, member: torch.Tensor, tie: torch.
 
 
 def update_prototypes(rep: torch.Tensor, cls_id: torch.Tensor, member: torch.Tensor,
-                      prototypes: torch.Tensor, alpha: float):
-    """EMA of the per-class means; a class seen for the first time (stored
-    prototype exactly zero) takes the mean.  Returns (new [C, D], counts [C])."""
+                      prototypes: torch.Tensor, alpha: float, distributed: bool = False):
+    """EMA of the per-class means (over all ranks when ``distributed``); a
+    class seen for the first time (stored prototype exactly zero) takes the
+    mean.  Returns (new [C, D], counts [C])."""
     onehot = _class_onehot(cls_id, member, prototypes.shape[0])
     sums = onehot.T @ rep.detach().float()
     counts = onehot.sum(0)
+    if distributed:
+        with torch.no_grad():
+            both = all_reduce_sum(torch.cat([sums, counts[:, None]], dim=1))
+        sums, counts = both[:, :-1], both[:, -1]
     mean = sums / torch.clamp_min(counts[:, None], 1.0)
     never_seen = torch.sum(prototypes, dim=1, keepdim=True) == 0.0
     ema = torch.where(never_seen, mean, alpha * prototypes + (1 - alpha) * mean)
@@ -89,6 +99,7 @@ def prototype_contrastive_loss(
     temp: float = 0.5,
     strong_threshold: float = 0.97,
     alpha: float = 0.99,
+    distributed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(loss, new_prototypes)``; Q is ``u1.shape[1]``."""
     b, h, w, d = rep.shape
@@ -101,7 +112,7 @@ def prototype_contrastive_loss(
     cls_id = torch.argmax(onehot_flat, dim=-1)
     member = (onehot_flat.amax(dim=-1) > 0) & (mask.reshape(n) > 0)
 
-    new_protos, _ = update_prototypes(rep_ng, cls_id, member, prototypes, alpha)
+    new_protos, _ = update_prototypes(rep_ng, cls_id, member, prototypes, alpha, distributed)
     protos_n = l2_normalize(new_protos)
 
     prob_at_cls = torch.sum(onehot_flat * prob.reshape(n, num_classes).detach(), dim=-1)

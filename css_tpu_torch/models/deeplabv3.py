@@ -17,10 +17,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from css_tpu_torch.models.aspp import ASPP
-from css_tpu_torch.models.resnet import (ConvBN, ResNetBackbone, resnet101, resnet101_stem,
-                                        resnet_tiny)
+from css_tpu_torch.models.resnet import (ConvBN, GroupedBatchNorm, ResNetBackbone, resnet101,
+                                        resnet101_stem, resnet_tiny)
 
-__all__ = ["DeepLabV3PlusDual", "build_model", "BACKBONES"]
+__all__ = ["DeepLabV3PlusDual", "build_model", "set_distributed", "BACKBONES"]
 
 BACKBONES = ("resnet101", "resnet101_stem", "tiny", "tiny_stem")
 
@@ -82,14 +82,27 @@ class DeepLabV3PlusDual(nn.Module):
                 rep.float().permute(0, 2, 3, 1))
 
 
+def set_distributed(model: nn.Module, distributed: bool) -> nn.Module:
+    """Turns the cross-replica statistics of every BatchNorm of ``model``
+    on or off (``GroupedBatchNorm.distributed``); returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, GroupedBatchNorm):
+            m.distributed = distributed
+    return model
+
+
 def build_model(num_classes: int, output_dim: int = 256, backbone: str = "resnet101",
                 output_stride: int = 8, dtype: torch.dtype = torch.float32,
-                seed: int = 0, remat=False, remat_policy: str = "nothing") -> DeepLabV3PlusDual:
+                seed: int = 0, remat=False, remat_policy: str = "nothing",
+                distributed: bool = False) -> DeepLabV3PlusDual:
     """The student/teacher network, randomly initialized from ``seed``
     (on the CPU; move it with ``.to(device)``).  ``backbone`` is one of
     ``BACKBONES``: the plain-stem ResNet-101 (VOC), the deep-stem multi-grid
     ``resnet101_stem`` (a Cityscapes option), or the tiny test trunks;
-    ``remat``/``remat_policy`` as ``ResNetBackbone`` takes them."""
+    ``remat``/``remat_policy`` as ``ResNetBackbone`` takes them.
+    ``distributed``: every BatchNorm (trunk, ASPP, heads) takes its
+    train-mode statistics over all ranks of the default process group, as
+    the JAX model built with ``axis_name`` does."""
     kw = dict(dtype=dtype, remat=remat, remat_policy=remat_policy)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -101,4 +114,5 @@ def build_model(num_classes: int, output_dim: int = 256, backbone: str = "resnet
             trunk = resnet_tiny(output_stride, deep_stem=backbone == "tiny_stem", **kw)
         else:
             raise ValueError(f"unknown backbone {backbone} (one of {BACKBONES})")
-        return DeepLabV3PlusDual(trunk, num_classes, output_dim, dtype)
+        model = DeepLabV3PlusDual(trunk, num_classes, output_dim, dtype)
+    return set_distributed(model, distributed)

@@ -12,7 +12,9 @@ keep separate BatchNorm statistics (the fused labeled + unlabeled forward).
 
 ``remat`` recomputes the bottlenecks of the chosen stages in backward
 (``torch.utils.checkpoint``).  The recompute leaves the BatchNorm running
-stats alone: each BN advances them once per forward, as without remat.
+stats alone: each BN advances them once per forward, as without remat.  A
+cross-replica BN's recompute issues its all-reduce again; every rank
+recomputes the same blocks in the same order, so the collectives pair up.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from css_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = ["GroupedBatchNorm", "ConvBN", "Bottleneck", "StageSpec", "ResNetBackbone",
            "REMAT_POLICIES", "resnet101", "resnet101_stem", "resnet_tiny"]
@@ -47,6 +51,13 @@ class GroupedBatchNorm(nn.Module):
     the ASPP pool BN).  Eval mode normalizes with the running stats, again in
     the input dtype.  ``update_stats`` False (while a checkpointed block is
     recomputed) leaves the running stats as they are.
+
+    ``distributed`` True (``build_model(distributed=True)``): each group's
+    f32 mean and E[x^2], stacked [2, G, C], go through one differentiable
+    all-reduce over the default process group and are divided by the world
+    size before the variance is formed, and the Bessel n counts every
+    replica, as the JAX module's ``axis_name`` does.  The module holds a
+    flag, not a process group, so a deep copy (the teacher) keeps it.
     """
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
@@ -55,6 +66,7 @@ class GroupedBatchNorm(nn.Module):
         self.momentum = momentum
         self.eps = eps
         self.update_stats = True
+        self.distributed = False
         self.weight = nn.Parameter(torch.zeros(channels) if zero_init_scale
                                    else torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -74,14 +86,19 @@ class GroupedBatchNorm(nn.Module):
         red = (1,) + tuple(range(3, xg.ndim))
         xf = xg.float()
         mean = xf.mean(dim=red)                                   # [G, C]
-        var = torch.square(xf).mean(dim=red) - torch.square(mean)
+        msq = torch.square(xf).mean(dim=red)
+        n = xg[0].numel() // c
+        if self.distributed:
+            world = torch.distributed.get_world_size()
+            mean, msq = all_reduce_sum(torch.stack([mean, msq])) / world
+            n *= world
+        var = msq - torch.square(mean)
         inv = self.weight * torch.rsqrt(var + self.eps)
         shape = (groups, 1, c) + (1,) * (x.ndim - 2)
         y = ((xg - mean.reshape(shape).to(dtype)) * inv.reshape(shape).to(dtype)
              + self.bias.reshape(shape[1:]).to(dtype))
         if self.update_stats:
             with torch.no_grad():
-                n = xg[0].numel() // c
                 bessel = n / max(n - 1.0, 1.0)
                 m = self.momentum
                 run_mean, run_var = self.running_mean, self.running_var

@@ -20,7 +20,10 @@ On CUDA tensors the wrappers launch the kernels of
 ``css_tpu_torch/csrc/contrastive_kernels.cu`` (or raise); on CPU tensors they
 run the plain PyTorch versions, which upcast the bf16 operands and take the
 products in f32.  ``LAUNCHES`` counts wrapper launches (compaction, K1, K2),
-so a run can show that it went through the kernels.
+so a run can show that it went through the kernels.  Each launch runs with
+its tensors' device current, since the library's attribute setting and
+launch act on the current device (a rank on ``cuda:1`` may have device 0
+current).
 """
 
 from __future__ import annotations
@@ -156,9 +159,10 @@ def compact_live_rows_kernel(w: torch.Tensor):
     buf = torch.empty(2 * n_pad + 4 + blocks, dtype=torch.int32, device=w.device)
     idx, wv = buf[:n_pad], buf[n_pad:2 * n_pad].view(torch.float32)
     n_live, counts = buf[2 * n_pad:2 * n_pad + 1], buf[2 * n_pad + 4:]
-    rc = _library().css_compact_live_rows(w.data_ptr(), n, counts.data_ptr(),
-                                          idx.data_ptr(), wv.data_ptr(),
-                                          n_live.data_ptr(), _stream(w))
+    with torch.cuda.device(w.device):
+        rc = _library().css_compact_live_rows(w.data_ptr(), n, counts.data_ptr(),
+                                              idx.data_ptr(), wv.data_ptr(),
+                                              n_live.data_ptr(), _stream(w))
     _check_rc("css_compact_live_rows", rc)
     LAUNCHES["live_rows_compact"] += 1
     return idx[:n], wv[:n], n_live
@@ -206,10 +210,11 @@ def _launch(fn_name, a, r, idx, wv, n_live, inv_temp, moment):
     width = (d_pad,) if moment else ()
     partial = torch.empty((chunks, q_pad) + width, dtype=torch.float32, device=a.device)
     out = torch.empty((q_pad,) + width, dtype=torch.float32, device=a.device)
-    rc = getattr(_library(), fn_name)(
-        a_p.data_ptr(), r_p.data_ptr(), idx.data_ptr(), wv.data_ptr(),
-        n_live.data_ptr(), partial.data_ptr(), out.data_ptr(), q_pad, d_pad,
-        chunks, float(inv_temp), _stream(a))
+    with torch.cuda.device(a.device):
+        rc = getattr(_library(), fn_name)(
+            a_p.data_ptr(), r_p.data_ptr(), idx.data_ptr(), wv.data_ptr(),
+            n_live.data_ptr(), partial.data_ptr(), out.data_ptr(), q_pad, d_pad,
+            chunks, float(inv_temp), _stream(a))
     _check_rc(fn_name, rc)
     return out
 

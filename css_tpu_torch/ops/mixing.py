@@ -1,13 +1,23 @@
-"""CutOut, CutMix and ClassMix on one device, counterpart of
-``css_tpu/ops/mixing.py``.
+"""CutOut, CutMix and ClassMix, counterpart of ``css_tpu/ops/mixing.py``.
 
 The box geometry is the reference's ``generate_cutout_mask``: area H*W/2,
 width drawn in [W/2 + 1, W), height round(area / width), corner uniform.
 ClassMix keeps a random half of the labels present in each image's first
-label map (-1 counts as a label of its own, slot 0).  The partner of image i
-is image (i + 1) mod B (``roll(-1)``).  The draws arrive as tensors: the box
-width and the uniforms of its corner (cutout, cutmix), or one uniform score
-per label slot and image (classmix).
+label map (-1 counts as a label of its own, slot 0).  The draws arrive as
+tensors: the box width and the uniforms of its corner (cutout, cutmix), or
+one uniform score per label slot and image (classmix).
+
+The partner of local image i is image (i + 1) mod B (``roll(-1)``) on one
+device.  Across ranks (``distributed``) the partner modes are JAX's:
+
+* ``reference``: every rank mixes with rank 0's shard rolled by one (the
+  reference gathers the world batch and indexes it with the local batch
+  size, so its partners all come from rank 0): one broadcast;
+* ``ring``: the global neighbour (i + 1) mod (world * B): the local roll,
+  with the last image's partner the next rank's first image (one
+  all-gather of one image).
+
+At world size 1 both are the local roll.
 """
 
 from __future__ import annotations
@@ -15,10 +25,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["MIX_MODES", "cutout_box_mask", "class_half_mask", "mix_batch"]
+__all__ = ["MIX_MODES", "PARTNERS", "cutout_box_mask", "class_half_mask", "mix_batch"]
 
 MIX_MODES = ("none", "cutout", "cutmix", "classmix")
+PARTNERS = ("reference", "ring")
 
 
 def cutout_box_mask(hw: Tuple[int, int], cut_w: torch.Tensor, u_x: torch.Tensor,
@@ -51,10 +63,30 @@ def class_half_mask(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     return torch.gather(selected.float(), 1, slot).reshape(labels.shape)
 
 
+@torch.no_grad()
+def _partner_batch(x: torch.Tensor, distributed: bool, partner: str) -> torch.Tensor:
+    """p with p[i] the mixing partner of local image i."""
+    if partner not in PARTNERS:
+        raise ValueError(f"unknown partner mode {partner!r} (one of {PARTNERS})")
+    if not distributed:
+        return torch.roll(x, -1, dims=0)
+    if partner == "reference":
+        src = x.contiguous().clone()     # rank 0 sends a copy, never its own tensor
+        dist.broadcast(src, 0)
+        return torch.roll(src, -1, dims=0)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    firsts = [torch.empty_like(x[:1]) for _ in range(world)]
+    dist.all_gather(firsts, x[:1].contiguous())
+    rolled = torch.roll(x, -1, dims=0)
+    rolled[-1] = firsts[(rank + 1) % world][0]
+    return rolled
+
+
 def mix_batch(images: torch.Tensor, labels: torch.Tensor, confs: torch.Tensor, *,
               mode: str = "cutmix", cut_w: Optional[torch.Tensor] = None,
               u_x: Optional[torch.Tensor] = None, u_y: Optional[torch.Tensor] = None,
-              scores: Optional[torch.Tensor] = None):
+              scores: Optional[torch.Tensor] = None, distributed: bool = False,
+              partner: str = "reference"):
     """Mixes ``images`` [B, 3, H, W], ``labels`` [B, K, H, W] int and
     ``confs`` [B, L, H, W] as ``mode`` says:
 
@@ -64,6 +96,9 @@ def mix_batch(images: torch.Tensor, labels: torch.Tensor, confs: torch.Tensor, *
     * cutmix: the box taken from the partner image;
     * classmix: the pixels of a random half of the first label map's classes
       kept, the rest taken from the partner image.
+
+    ``distributed``/``partner`` choose the partners across ranks (see the
+    module docstring).
     """
     if mode == "none":
         return images, labels, confs
@@ -76,7 +111,8 @@ def mix_batch(images: torch.Tensor, labels: torch.Tensor, confs: torch.Tensor, *
     if mode == "cutout":
         first = torch.where(mask[:, 0] > 0, labels[:, 0], torch.full_like(labels[:, 0], -1))
         return images * mask, torch.cat([first[:, None], labels[:, 1:]], dim=1), confs * mask
-    p_images, p_labels, p_confs = (torch.roll(t, -1, dims=0) for t in (images, labels, confs))
+    p_images, p_labels, p_confs = (_partner_batch(t, distributed, partner)
+                                   for t in (images, labels, confs))
     im = mask.to(labels.dtype)
     return (images * mask + p_images * (1.0 - mask),
             labels * im + p_labels * (1 - im),

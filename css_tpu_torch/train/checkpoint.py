@@ -10,6 +10,7 @@ A ResNet-101 save is about 0.7 GB (student, teacher and momentum).
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Tuple
 
@@ -17,7 +18,7 @@ import torch
 
 from css_tpu_torch.train.state import TrainState
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "load_prototypes"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "load_prototypes", "state_sha256"]
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int, miou: float) -> None:
@@ -61,3 +62,18 @@ def load_prototypes(path: str, state: TrainState) -> TrainState:
     """Seeds only the prototypes from another run's checkpoint."""
     state.prototypes = _load(path, state)["prototypes"]
     return state
+
+
+def state_sha256(state: TrainState) -> str:
+    """SHA-256 of what a checkpoint of ``state`` holds: the step, the
+    student's and the teacher's tensors, the momentum buffers and the
+    prototypes, each in its logical (contiguous) element order.  Replicas
+    that agree bit for bit have the same digest."""
+    h = hashlib.sha256(str(int(state.step)).encode())
+    momentum = [state.optimizer.state.get(p, {}).get("momentum_buffer")
+                for p in state.model.parameters()]
+    tensors = (list(state.model.state_dict().values()) + list(state.teacher.state_dict().values())
+               + [m for m in momentum if m is not None] + [state.prototypes])
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()

@@ -1,5 +1,5 @@
-"""The semi-supervised train step on one device, strategies ``ori``, ``mix``
-and ``cross``, counterpart of ``css_tpu/train/train_step.py::make_train_step``.
+"""The semi-supervised train step, strategies ``ori``, ``mix`` and ``cross``,
+counterpart of ``css_tpu/train/train_step.py::make_train_step``.
 
 Dataflow, in the reference's module-call order:
 
@@ -35,6 +35,15 @@ casts conv weights and activations to its ``dtype``; BatchNorm statistics,
 model outputs and losses are f32.  Every random draw arrives in ``draws``
 (``train/draws.py``).  The step updates ``state`` in place and returns it
 with the step's losses.
+
+``distributed`` (the JAX step's ``axis_name``): the step runs on every rank
+of the default process group, each on its shard of the batch with its own
+draws, the model built with cross-replica BatchNorm.  Besides the BN
+statistics, the prototype sums and the mixing partners (``mix_partner``),
+it averages the gradients over the ranks after ``backward()`` (one
+all-reduce of one flat buffer, before the SGD update) and the four losses it
+returns.  Every rank issues the same collectives in the same order, and the
+step adds no host synchronisation.
 """
 
 from __future__ import annotations
@@ -50,8 +59,9 @@ from css_tpu_torch.losses.threshold import attention_threshold_loss
 from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet,
                                        to_channel_first, to_channel_last)
 from css_tpu_torch.ops.interpolate import bilinear_resize, nearest_resize
-from css_tpu_torch.ops.mixing import MIX_MODES, mix_batch
+from css_tpu_torch.ops.mixing import MIX_MODES, PARTNERS, mix_batch
 from css_tpu_torch.ops.onehot import label_onehot, label_onehot_ignore
+from css_tpu_torch.parallel.mesh import all_reduce_sum, mean_gradients, world_size
 from css_tpu_torch.train.draws import StepDraws
 from css_tpu_torch.train.state import TrainState, ema_update
 
@@ -71,6 +81,7 @@ class StepConfig:
     scale_range: Tuple[float, float]
     strategy: str = "ori"                     # ori | mix | cross
     mix_mode: str = "cutmix"                  # none | cutout | cutmix | classmix
+    mix_partner: str = "reference"            # reference | ring (across ranks)
     sup_loss: str = "ce"                      # ce | ohem
     ohem_thresh: float = 0.7
     ohem_min_kept_per_image: int = 50000      # times the labeled batch
@@ -86,6 +97,7 @@ class StepConfig:
     contrast_enabled: bool = True             # Loss.is_available in the YAML
     negative_mode: str = "sampled_pallas"
     fused_forward: bool = False               # one pass over labeled + unlabeled
+    distributed: bool = False                 # reduce over the default process group
 
 
 def _remap_ignore(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -123,6 +135,8 @@ def make_train_step(cfg: StepConfig):
         raise ValueError(f"unknown strategy {cfg.strategy!r} (one of {STRATEGIES})")
     if cfg.mix_mode not in MIX_MODES:
         raise ValueError(f"unknown mix mode {cfg.mix_mode!r} (one of {MIX_MODES})")
+    if cfg.mix_partner not in PARTNERS:
+        raise ValueError(f"unknown mix partner {cfg.mix_partner!r} (one of {PARTNERS})")
     if cfg.sup_loss not in SUP_LOSSES:
         raise ValueError(f"unknown sup_loss {cfg.sup_loss!r} (one of {SUP_LOSSES})")
     if cfg.negative_mode != "sampled_pallas":
@@ -165,6 +179,7 @@ def make_train_step(cfg: StepConfig):
         img01, labels, confs = batch_transform(u_img01, labels, confs, full_hw, (ch, cw),
                                                **draws.t_crop.as_kwargs())
         img01, labels, confs = mix_batch(img01, labels, confs, mode=cfg.mix_mode,
+                                         distributed=cfg.distributed, partner=cfg.mix_partner,
                                          **draws.mix.as_kwargs())
         img01, labels, confs = batch_transform(img01, labels, confs, full_hw, (ch, cw),
                                                **draws.u_aug.as_kwargs())
@@ -235,21 +250,26 @@ def make_train_step(cfg: StepConfig):
             contrast, new_protos = prototype_contrastive_loss(
                 rep_all, label_all, torch.cat([mask_l, mask_u]), prob_all, state.prototypes,
                 **draws.contrast.as_kwargs(), num_negatives=cfg.num_negatives, temp=cfg.temp,
-                strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha)
+                strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha,
+                distributed=cfg.distributed)
         else:
             contrast, new_protos = sup.new_zeros(()), state.prototypes
         total = sup + unsup + contrast * contrast_weight
 
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if cfg.distributed:
+            mean_gradients(model.parameters())
         for group in state.optimizer.param_groups:
             group["lr"] = state.lr_schedule(state.step)
         state.optimizer.step()
         ema_update(state.teacher, model, state.step, cfg.ema_alpha)
         state.prototypes = new_protos.detach()
         state.step += 1
-        metrics = dict(total=total.detach(), sup=sup.detach(), unsup=unsup.detach(),
-                       contrast=contrast.detach())
+        losses = (total, sup, unsup, contrast)
+        if cfg.distributed:
+            losses = (all_reduce_sum(torch.stack(losses).detach()) / world_size()).unbind()
+        metrics = {k: v.detach() for k, v in zip(("total", "sup", "unsup", "contrast"), losses)}
         return state, metrics
 
     return step

@@ -1,5 +1,5 @@
 """Logging: stdout plus an optional log file, and optional TensorBoard
-scalars; counterpart of ``css_tpu/utils/logging.py`` for one process."""
+scalars, from rank 0 only; counterpart of ``css_tpu/utils/logging.py``."""
 
 from __future__ import annotations
 
@@ -11,13 +11,18 @@ __all__ = ["Logger", "ScalarWriter"]
 
 
 class Logger:
-    def __init__(self, log_file: Optional[str] = None):
+    """Prints and appends to ``log_file`` on rank 0; silent on other ranks."""
+
+    def __init__(self, log_file: Optional[str] = None, rank: int = 0):
+        self.rank = rank
         self._fh = None
-        if log_file:
+        if log_file and rank == 0:
             os.makedirs(os.path.dirname(log_file) or ".", exist_ok=True)
             self._fh = open(log_file, "a")
 
     def info(self, msg: str) -> None:
+        if self.rank != 0:
+            return
         stamp = time.strftime("%Y-%m-%d %H:%M:%S")
         line = f"[{stamp}] {msg}"
         print(line, flush=True)
@@ -32,11 +37,12 @@ class Logger:
 
 
 class ScalarWriter:
-    """TensorBoard scalars; a no-op where tensorboardX is not installed."""
+    """TensorBoard scalars from rank 0; a no-op on other ranks and where
+    tensorboardX is not installed."""
 
-    def __init__(self, log_dir: Optional[str]):
+    def __init__(self, log_dir: Optional[str], rank: int = 0):
         self._w = None
-        if log_dir:
+        if log_dir and rank == 0:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:

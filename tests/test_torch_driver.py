@@ -445,7 +445,6 @@ def test_labeled_split_smaller_than_a_batch_fails_fast(tmp_path):
     ("Training_Setting.aug_quantize", {"Training_Setting.aug_quantize": True}, ()),
     ("Loss.negative_mode", {"Loss.negative_mode": "expected_pallas"}, ()),
     ("Dataset.mix_mode", {"Dataset.mix_mode": "classmix"}, ()),
-    ("--num_devices", {}, ("--num_devices", "2")),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_driver_refuses_what_is_not_ported_by_name(tmp_path, key, override, flags):
     config = _tiny_yaml(tmp_path, **override)

@@ -178,3 +178,26 @@ def test_no_host_sync_on_the_path(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.isfinite(a.grad).all()
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_their_tensors_device(cuda):
+    """Tensors on cuda:1 while cuda:0 is current: the wrappers launch on
+    the tensors' device (the library sets its attribute and launches on
+    the current one), forward and backward."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: the tensors' device must differ from the current one")
+    other = torch.device("cuda:1")
+    a, r, _ = _case(other, 256, 256, 50_000, seed=13)
+    w = _live_weights(50_000, "scattered", seed=13).to(other)
+    a = a.float().requires_grad_(True)
+    with torch.cuda.device(0):
+        s = ck.weighted_exp_softsum(a, r, w, 2.0)
+        torch.log(s).sum().backward()
+        m = ck.softsum_moment_kernel(a.detach().to(torch.bfloat16), r, w, 2.0)
+    torch.cuda.synchronize(other)
+    assert s.device == a.grad.device == m.device == other
+    torch.testing.assert_close(s, ck.softsum_plain(a.detach().to(torch.bfloat16), r, w, 2.0),
+                               rtol=1e-3, atol=1e-6)
+    _close_m(m, ck.softsum_moment_plain(a.detach().to(torch.bfloat16), r, w, 2.0))
+    assert torch.isfinite(a.grad).all()

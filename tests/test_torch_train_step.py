@@ -60,10 +60,14 @@ STEP1_PARAM_ATOL = 2e-2
 STEP1_STAT_ATOL = 5e-2
 
 
-def replay_step_draws(rng, step, cfg: JaxStepConfig, bl, bu, deep_stem=False) -> StepDraws:
+def replay_step_draws(rng, step, cfg: JaxStepConfig, bl, bu, deep_stem=False,
+                      rank=None) -> StepDraws:
     """The draws of css_tpu's ``step(state, batch, rng, ...)`` at ``step``,
-    for the tiny trunk's output size (plain or deep stem)."""
+    for the tiny trunk's output size (plain or deep stem); with ``rank``,
+    those of device ``rank`` of the step built with an ``axis_name``."""
     rng = jax.random.fold_in(rng, step)
+    if rank is not None:
+        rng = jax.random.fold_in(rng, rank)
     k_laug, k_ucrop, k_teacher, k_contrast = jax.random.split(rng, 4)
     k_t, k_mix, k_aug2 = jax.random.split(k_teacher, 3)
     h, w = resnet_tiny(deep_stem=deep_stem).low_level_hw(cfg.crop_hw)
