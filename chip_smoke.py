@@ -37,6 +37,23 @@ exit code, and no result line:
    prints each strategy's ms/step beside the train phase's ``ori`` ms/step
    and the share of valid unlabeled pixels that keep a label (for ``mix``,
    where the two label spaces agree);
+6b. opt-in steps, continuing the train phase's state: a full-size VOC
+   ``ori`` step (1 warm-up + ``--steps`` timed) in ``sampled_pallas`` (the
+   yardstick, timed in this phase) and in each of the negative modes
+   ``expected`` (the plain product), ``expected_pallas`` (K1/K2 on dense
+   weights) and ``sampled`` (gathered negatives), each with finite losses,
+   its ms/step beside ``sampled_pallas``'s and its peak memory; the
+   ``_pallas`` modes must launch each kernel 21 times a step, the others
+   none.  The ``expected_pallas`` warm-up step records the contrastive
+   loss's inputs, on which the loss in ``expected_pallas`` must equal the
+   loss in ``expected`` to 2e-3, and its first dense kernel call, whose
+   K1, K2 and compaction are checked against their plain versions and
+   timed as in the kernel phase.  Then one step under the uint8
+   augmentation law (``aug_quantize``), and ``batch_transform(quantize=
+   True)`` with the photometric ops on one labeled batch on the card
+   against the same call on the CPU with the same draws: at most one uint8
+   step apart (the share of exact pixels is printed; all are expected),
+   labels and confidences equal;
 7. cross entry point: with the state freed, ``cross`` through its entry
    point's parser (shipped VOC YAML, ``--synthetic --num_labels 16
    --total_iter 4 --warmup 1``: 2 epochs of 2 steps, an eval after each) in
@@ -57,6 +74,16 @@ exit code, and no result line:
    launched 21 x 6 times.  It prints the driver's steps/s and ms/step
    (beside the train phase's bare step), eval ms per image, checkpoint
    seconds, the phase's peak memory, and the loader's ms per batch alone;
+8b. opt-in entry points, on run B's ``last_model``: ``evaluate``
+   (``--synthetic --num_labels 32``, the teacher, one crop per image) must
+   print a confusion matrix equal to the driver's ``_evaluate`` on the same
+   checkpoint with the same eval number; the sliding-window eval at the
+   Cityscapes shapes (random weights, 769^2 windows over 1024 x 2048
+   canvases, 8 a canvas: 2 canvases plain, 1 with a flip and scales 0.75
+   and 1.0) must count every valid label pixel once, and prints ms per
+   image; ``predict`` with ``--overlay`` on 4 images of mixed sizes, one
+   larger than the canvas, must write each mask and overlay at its input's
+   size;
 9. cityscapes: with every earlier state freed and the peak counter reset,
    the shipped Cityscapes YAML's step (``css_tpu_torch/config/
    CityScapes_config_baseline.yaml`` through ``_build_state_and_steps``: 19
@@ -113,9 +140,11 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -144,6 +173,7 @@ def _smi() -> str:
 
 
 FLUSH_KERNEL = "bitwise_not"   # the L2 flush's kernel, left out of device times
+FIRST_KERNEL = "count_live"    # the first kernel of every wrapper call that compacts
 
 
 def _l2_flush(torch):
@@ -154,14 +184,16 @@ def _l2_flush(torch):
     return buf.bitwise_not_
 
 
-def _timed(torch, fn, iters: int, flush, device: bool = True) -> tuple:
+def _timed(torch, fn, iters: int, flush, marker: str = "") -> tuple:
     """(ms, device_ms) per call of ``fn``, the L2 flushed before each call.
     ms: the median over the calls of CUDA events around each call (the
     median, since a stall of the shared host can hold one call's second
-    event back).  device_ms (None unless ``device``):
-    the summed durations of the call's kernels from torch.profiler, without
-    the host's gaps; one flush ahead of the calls warms the profiler up and
-    may go unseen, as the first event a profiler records can."""
+    event back).  device_ms (None without ``marker``): the summed durations
+    of the calls' kernels from torch.profiler, without the host's gaps.
+    ``marker`` names the first kernel of every call.  The profiler misses
+    the first records of a window on the card (flushes and kernels alike),
+    so the sum runs from the second call it saw on, over the calls after
+    it; it fails if more than two calls' markers went missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -176,7 +208,7 @@ def _timed(torch, fn, iters: int, flush, device: bool = True) -> tuple:
         end.record()
     torch.cuda.synchronize()
     ms = statistics.median(start.elapsed_time(end) for start, end in events)
-    if not device:
+    if not marker:
         return ms, None
     with profile(activities=[ProfilerActivity.CUDA]) as p:
         flush()
@@ -185,12 +217,14 @@ def _timed(torch, fn, iters: int, flush, device: bool = True) -> tuple:
             flush()
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in p.events() if e.device_type == DeviceType.CUDA]
-    flushes = sum(FLUSH_KERNEL in e.name for e in kernels)
-    if flushes not in (iters, iters + 1):
-        raise RuntimeError(f"profiler saw {flushes} L2 flushes in {iters} calls")
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels if FLUSH_KERNEL not in e.name)
-    return ms, busy_us / iters / 1e3
+    kernels = sorted((e for e in p.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in kernels if marker in e.name]
+    if len(starts) < iters - 2:
+        raise RuntimeError(f"profiler saw {len(starts)} {marker} kernels in {iters} calls")
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels
+                  if FLUSH_KERNEL not in e.name and e.time_range.start >= starts[1])
+    return ms, busy_us / (len(starts) - 1) / 1e3
 
 
 def _kernel_inputs(torch, ck, g, w_kind: str, n: int):
@@ -264,7 +298,7 @@ def _kernel_shape(torch, ck, g, flush, n: int, kinds):
         errs = {"k1": (s - s_ref).abs().max().item(), "k2": (m - m_ref).abs().max().item(),
                 "compact": 0.0}   # checked equal above
         bounds = _bounds_ms(a, w, live)
-        matmul_ms, _ = _timed(torch, lambda: torch.matmul(a, r.T), 10, flush, False)
+        matmul_ms, _ = _timed(torch, lambda: torch.matmul(a, r.T), 10, flush)
         timing = {   # (kernel wrapper, plain version, library call)
             "k1": (lambda: ck.softsum_kernel(a, r, w, INV_TEMP),
                    lambda: ck.softsum_plain(a, r, w, INV_TEMP), None),
@@ -274,10 +308,10 @@ def _kernel_shape(torch, ck, g, flush, n: int, kinds):
                         lambda: ck.compact_live_rows_plain(w), lambda: torch.nonzero(w)),
         }
         for name, (kern, plain, library) in timing.items():
-            ms, device_ms = _timed(torch, kern, 20, flush)
-            library_ms = _timed(torch, library, 10, flush, False)[0] if library else matmul_ms
+            ms, device_ms = _timed(torch, kern, 20, flush, FIRST_KERNEL)
+            library_ms = _timed(torch, library, 10, flush)[0] if library else matmul_ms
             row = dict(ms=ms, device_ms=device_ms,
-                       plain_ms=_timed(torch, plain, 5, flush, False)[0],
+                       plain_ms=_timed(torch, plain, 5, flush)[0],
                        bound_ms=bounds[name][0], bound_by=bounds[name][1],
                        library_ms=library_ms, max_abs_err=errs[name])
             print(f"kernel {name} N={n} w={kind} live_rows={live}: " + json.dumps(row),
@@ -287,7 +321,8 @@ def _kernel_shape(torch, ck, g, flush, n: int, kinds):
                 results[name].update({k: v for k, v in row.items() if k != "max_abs_err"})
         # K1 and K2 alone over a saved compaction, as the step's backward runs K2
         for name, kern in (("k1", ck.softsum_live_kernel), ("k2", ck.softsum_moment_live_kernel)):
-            ms, device_ms = _timed(torch, lambda: kern(a, r, *comp, INV_TEMP), 20, flush)
+            ms, device_ms = _timed(torch, lambda: kern(a, r, *comp, INV_TEMP), 20, flush,
+                                   f"{name}_live")
             print(f"kernel {name}_over_compaction N={n} w={kind} live_rows={live}: "
                   + json.dumps(dict(ms=ms, device_ms=device_ms)), flush=True)
         del a, r, w, s, m, s_ref, m_ref, comp
@@ -338,8 +373,8 @@ def _check_finite(losses, label: str):
 def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: str):
     """``warmup`` untimed steps, then ``steps`` timed ones with the launch
     counters zeroed and the peak reset just before; fails on a non-finite
-    loss or launches other than ``c`` per kernel per step.  Returns (ms per
-    step, peak GiB, losses)."""
+    loss or launches other than ``c`` per kernel per step (0: a path that
+    runs no kernel).  Returns (ms per step, peak GiB, launches)."""
     for _ in range(warmup):
         one_step()
     torch.cuda.synchronize()
@@ -484,9 +519,6 @@ def cross_entry_phase(torch, ck):
     """``cross`` through its entry point: 2 epochs of 2 steps, ``--warmup
     1``, an eval after each epoch, in a temporary directory."""
     import gc
-    import shutil
-    import tempfile
-
     from css_tpu_torch.cli import entries, train_main
     from css_tpu_torch.config import CONFIG_DIR
     from css_tpu_torch.train.schedulers import rampdown_value
@@ -636,15 +668,13 @@ def _loader_ms_per_batch(batches: int = 6) -> float:
         loader.close()
 
 
-def driver_phase(torch, ck, smi: str, profile: bool):
+def driver_phase(torch, ck, smi: str, profile: bool, keep_checkpoint: str):
     """Runs A (4 steps + eval) and B (resumed, steps 5-6 + eval) through the
     port's entry point and checks them; see the module docstring.  With
     ``profile``, run A's third step is profiled (the device drained first);
     the driver's step times then include that step, so read them from a run
-    without ``--profile``."""
-    import shutil
-    import tempfile
-
+    without ``--profile``.  Run B's ``last_model`` is copied to
+    ``keep_checkpoint`` for the opt-in phase."""
     from css_tpu_torch.cli import entries, train_main
     from css_tpu_torch.config import CONFIG_DIR
 
@@ -674,6 +704,7 @@ def driver_phase(torch, ck, smi: str, profile: bool):
                     start_step, start_protos = probe.start
             launches = dict(ck.LAUNCHES)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        shutil.copy(last, keep_checkpoint)
     finally:
         os.chdir(cwd)
         shutil.rmtree(workdir, ignore_errors=True)
@@ -710,6 +741,238 @@ def driver_phase(torch, ck, smi: str, profile: bool):
     print(f"driver ({smi}): steps/s {sps:.4f} = {1e3 / sps:.3f} ms/step (driver StepTimer, "
           f"run A); device-timeline ms between step ends {json.dumps(ms)}; "
           f"peak memory {peak_gib:.3f} GiB; launches {json.dumps(launches)}", flush=True)
+
+
+def _record_calls(module, name: str, calls: list):
+    """Wraps ``module.name`` so that each call's arguments are appended to
+    ``calls``; returns a function that puts the original back."""
+    real = getattr(module, name)
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+    setattr(module, name, recording)
+    return lambda: setattr(module, name, real)
+
+
+def _dense_kernel_row(torch, ck, a, r, w, inv_temp: float) -> dict:
+    """K1, K2 and the compaction on one class's dense weights from the
+    ``expected_pallas`` step: against their plain versions, then timed with
+    the L2 flushed before each call, as the kernel phase does."""
+    flush = _l2_flush(torch)
+    comp, live = _check_compaction(torch, ck, w)
+    s, m = ck.softsum_kernel(a, r, w, inv_temp), ck.softsum_moment_kernel(a, r, w, inv_temp)
+    s_ref, m_ref = ck.softsum_plain(a, r, w, inv_temp), ck.softsum_moment_plain(a, r, w, inv_temp)
+    torch.testing.assert_close(s, s_ref, rtol=K1_RTOL, atol=1e-6)
+    torch.testing.assert_close(m, m_ref, rtol=K2_RTOL,
+                               atol=K2_ATOL_FRACTION * m_ref.abs().max().item())
+    errs = {"k1": (s - s_ref).abs().max().item(), "k2": (m - m_ref).abs().max().item(),
+            "compact": 0.0}
+    bounds = _bounds_ms(a, w, live)
+    matmul_ms = _timed(torch, lambda: torch.matmul(a, r.T), 10, flush)[0]
+    timing = {"k1": (lambda: ck.softsum_kernel(a, r, w, inv_temp),
+                     lambda: ck.softsum_plain(a, r, w, inv_temp), None),
+              "k2": (lambda: ck.softsum_moment_kernel(a, r, w, inv_temp),
+                     lambda: ck.softsum_moment_plain(a, r, w, inv_temp), None),
+              "compact": (lambda: ck.compact_live_rows_kernel(w),
+                          lambda: ck.compact_live_rows_plain(w), lambda: torch.nonzero(w))}
+    rows = {}
+    for name, (kern, plain, library) in timing.items():
+        ms, device_ms = _timed(torch, kern, 20, flush, FIRST_KERNEL)
+        rows[name] = dict(n=w.numel(), live_rows=live, ms=ms, device_ms=device_ms,
+                          plain_ms=_timed(torch, plain, 5, flush)[0],
+                          bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                          library_ms=(_timed(torch, library, 10, flush)[0] if library
+                                      else matmul_ms), max_abs_err=errs[name])
+        print(f"opt-in kernel {name} dense (expected_pallas) N={w.numel()} live_rows={live}: "
+              + json.dumps(rows[name]), flush=True)
+    return rows
+
+
+def optin_steps_phase(torch, ck, train, smi: str, steps: int):
+    """Part 1 of the opt-in phase, from the train phase's state: a full-size
+    VOC ``ori`` step in each other negative mode and one under the uint8
+    augmentation law, and the quantized augmentation on the card against the
+    CPU; see the module docstring.  Returns (the ``expected_pallas`` steps'
+    launches, the dense kernel rows)."""
+    from css_tpu_torch.losses import contrastive
+    from css_tpu_torch.ops.augment import batch_transform
+    from css_tpu_torch.train import train_step as ts
+    from css_tpu_torch.train.draws import sample_augment_draws, sample_step_draws
+
+    state, batch, g = train["state"], train["batch"], train["g"]
+    c, crop, bsz = 21, 512, 8
+    h, w = state.model.output_hw((crop, crop))
+    ms, losses_in, dense_calls = {}, [], []
+
+    def runner(**overrides):
+        cfg = ts.StepConfig(num_classes=c, crop_hw=(crop, crop), scale_range=(0.5, 1.5),
+                            **overrides)
+        step = ts.make_train_step(cfg)
+
+        def one_step():
+            draws = sample_step_draws(g, cfg, bsz, bsz, 2 * bsz * h * w)
+            return step(state, batch, draws, 1.0)[1]
+        return one_step
+
+    # sampled_pallas first: the modes' yardstick, timed in this phase
+    for mode in ("sampled_pallas", "expected", "expected_pallas", "sampled"):
+        one_step, warmup = runner(negative_mode=mode), 1
+        if mode == "expected_pallas":   # the warm-up records the loss's inputs, a dense call
+            undo = [_record_calls(ts, "prototype_contrastive_loss", losses_in),
+                    _record_calls(contrastive, "weighted_exp_softsum", dense_calls)]
+            try:
+                one_step()
+            finally:
+                for put_back in undo:
+                    put_back()
+            warmup = 0
+        ms[mode], peak, launches = _timed_steps(torch, ck, one_step, warmup, steps,
+                                                c if mode.endswith("_pallas") else 0,
+                                                f"opt-in {mode}")
+        if mode == "expected_pallas":
+            dense_launches = launches
+        print(f"opt-in {mode} ({smi}): {ms[mode]:.3f} ms/step vs sampled_pallas "
+              f"{ms['sampled_pallas']:.3f} ms/step in this phase "
+              f"({ms[mode] / ms['sampled_pallas']:.4f}x), peak memory {peak:.3f} GiB", flush=True)
+
+    # the dense kernel path against the plain product, on the step's own inputs
+    args, kw = losses_in[0]
+    detached = [x.detach() if torch.is_tensor(x) else x for x in args]
+    kw = dict(kw, negative_mode="expected")
+    plain = contrastive.prototype_contrastive_loss(*detached, **kw)[0].item()
+    kw["negative_mode"] = "expected_pallas"
+    dense = contrastive.prototype_contrastive_loss(*detached, **kw)[0].item()
+    print(f"opt-in expected_pallas vs expected on the step's own inputs: contrastive loss "
+          f"{dense:.6f} vs {plain:.6f} (gap {abs(dense - plain):.3e}, bound 2e-3)", flush=True)
+    if not (math.isfinite(dense) and abs(dense - plain) <= 2e-3):
+        raise RuntimeError(f"opt-in: expected_pallas loss {dense} vs expected {plain}")
+    (a, r, w_dense, inv_temp), _ = dense_calls[0]
+    dense_rows = _dense_kernel_row(torch, ck, a.detach().to(torch.bfloat16), r, w_dense.detach(),
+                                   inv_temp)
+    del losses_in, dense_calls, args, detached, kw, a, r, w_dense
+
+    _timed_steps(torch, ck, runner(aug_quantize=True), 1, 1, c, "opt-in aug_quantize")
+    # the quantized augmentation on the card against the CPU, with the same
+    # draws, on a uint8 canvas as the driver feeds it
+    draws = sample_augment_draws(g, bsz, (0.5, 1.5), photometric=True)
+    canvas = torch.randint(0, 256, (bsz, crop, crop, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    confs = torch.rand(bsz, 1, crop, crop, generator=g, device="cuda")
+    inputs = (canvas, batch["l_label"][:, None].long(), confs, batch["l_valid_hw"])
+
+    def quantized(canvas, labels, confs, valid_hw, **kw):
+        return batch_transform(ts._to01_cf(canvas), labels, confs, valid_hw, (crop, crop), **kw,
+                               quantize=True)
+    t0 = time.perf_counter()
+    on_card = quantized(*inputs, **draws.as_kwargs())
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    on_cpu = quantized(*(x.cpu() for x in inputs),
+                       **{k: v.cpu() for k, v in draws.as_kwargs().items()})
+    err = (on_card[0].cpu() - on_cpu[0]).abs()
+    exact = (err == 0).float().mean().item()
+    same = [torch.equal(on_card[i].cpu(), on_cpu[i]) for i in (1, 2)]
+    print(f"opt-in quantized batch_transform (b{bsz}, {crop}^2 uint8 canvas, photometric on): "
+          f"card vs CPU largest gap {err.max().item() * 255:.3f} uint8 steps, exact share "
+          f"{exact:.6f}, labels equal {same[0]}, confidences equal {same[1]}; {card_ms:.3f} ms "
+          f"on the card (first call)", flush=True)
+    if err.max().item() > 1.0 / 255.0 + 1e-6 or not all(same):
+        raise RuntimeError("opt-in: the quantized augmentation on the card is more than one "
+                           "uint8 step from the CPU's")
+    return dense_launches, dense_rows
+
+
+def optin_entry_phase(torch, smi: str, checkpoint: str):
+    """Part 2 of the opt-in phase: ``evaluate`` and ``predict`` on the driver
+    phase's checkpoint, and the sliding-window eval at the Cityscapes shapes
+    on random weights; see the module docstring."""
+    import numpy as np
+    from PIL import Image
+
+    from css_tpu_torch.cli import entries, evaluate_main, train_main
+    from css_tpu_torch.config import CONFIG_DIR, load_config
+    from css_tpu_torch.models.deeplabv3 import build_model
+    from css_tpu_torch.train.train_step import make_eval_step, make_sliding_eval_step
+
+    _free(torch)
+    voc = os.path.join(CONFIG_DIR, VOC_YAML)
+    argv = ["--config", voc, "--checkpoint", checkpoint, "--synthetic", "--num_labels", "32"]
+    t0 = time.perf_counter()
+    cm = evaluate_main.main(argv)
+    seconds = time.perf_counter() - t0
+    # the driver's _evaluate on the same checkpoint, eval number and crops
+    cfg = load_config(voc)
+    cfg.set("Dataset.name", "Synthetic")
+    model, _, _ = evaluate_main.load_eval_model(cfg, checkpoint, False, torch.device("cuda"))
+    args = entries.ori_pseudo_parser().parse_args(["--num_labels", "32"])
+    loaders = train_main._make_loaders(cfg, args, cfg.require("Dataset.batch_size"))
+    try:
+        want = train_main._evaluate(make_eval_step(model, 21), loaders[2], (512, 512), 21,
+                                    cfg.get("Seed"), evaluate_main.EVAL_INDEX,
+                                    torch.device("cuda"))
+    finally:
+        for loader in loaders:
+            loader.close()
+    images = 2 * cfg.require("Dataset.batch_size")
+    print(f"opt-in evaluate ({smi}): {seconds:.3f} s for {images} images with the model build "
+          f"and restore; matrix total {int(cm.mat.sum())}, equal to the driver's _evaluate "
+          f"{np.array_equal(cm.mat, want.mat)}", flush=True)
+    if not np.array_equal(cm.mat, want.mat) or cm.mat.sum() == 0:
+        raise RuntimeError("opt-in: evaluate's confusion matrix differs from the driver's")
+    del model
+
+    # sliding windows at the Cityscapes shapes: 769^2 windows over 1024 x 2048, 8 a canvas
+    city = build_model(19, 256, "resnet101", dtype=torch.bfloat16, seed=5).to(
+        "cuda", memory_format=torch.channels_last)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for label, b, flip, scales in (("plain", 2, False, (1.0,)),
+                                   ("flip + scales 0.75,1.0", 1, True, (0.75, 1.0))):
+        image = torch.randn(b, 1024, 2048, 3, generator=g, device="cuda")
+        lab = torch.randint(0, 19, (b, 1024, 2048), generator=g, device="cuda")
+        lab[torch.rand(b, 1024, 2048, generator=g, device="cuda") < 0.05] = -1
+        lab[:, 1000:] = -1                          # padded canvas rows
+        valid = torch.ones(b, dtype=torch.bool, device="cuda")
+        step = make_sliding_eval_step(city, 19, (1024, 2048), (769, 769), flip=flip,
+                                      scales=scales)
+        zero = torch.zeros((19, 19), dtype=torch.int64, device="cuda")
+        step(zero, image, lab, valid)               # cuDNN's picks for these shapes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mat = step(zero, image, lab, valid)
+        total = int(mat.sum())
+        ms = (time.perf_counter() - t0) * 1e3
+        pixels = int((lab >= 0).sum())
+        print(f"opt-in sliding eval {label} ({smi}): {ms / b:.3f} ms/image over {b} "
+              f"1024x2048 canvas(es), 769^2 windows; matrix total {total}, valid label pixels "
+              f"{pixels}", flush=True)
+        if total != pixels:
+            raise RuntimeError(f"opt-in: sliding eval counted {total} of {pixels} pixels")
+    del city, image, lab
+    _free(torch)
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    try:
+        sizes = [(375, 500), (512, 512), (600, 800), (333, 271)]   # (h, w); one past 512^2
+        rng = np.random.default_rng(7)
+        for i, (h, w) in enumerate(sizes):
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                os.path.join(workdir, f"im{i}.png"))
+        out = os.path.join(workdir, "out")
+        t0 = time.perf_counter()
+        entries.main(["predict", "--config", voc, "--checkpoint", checkpoint, "--inputs",
+                      workdir, "--out_dir", out, "--overlay"])
+        seconds = time.perf_counter() - t0
+        got = [np.asarray(Image.open(os.path.join(out, f"im{i}_pred.png"))).shape
+               for i in range(len(sizes))]
+        overlays = [np.asarray(Image.open(os.path.join(out, f"im{i}_overlay.png"))).shape[:2]
+                    for i in range(len(sizes))]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"opt-in predict ({smi}): {seconds:.3f} s for {len(sizes)} images with the model "
+          f"build and restore; masks {got}, overlays {overlays}, inputs {sizes}", flush=True)
+    if got != sizes or overlays != sizes:
+        raise RuntimeError(f"opt-in: predict wrote masks {got} for inputs {sizes}")
 
 
 def _free(torch):
@@ -779,9 +1042,6 @@ def cityscapes_phase(torch, ck, smi: str, steps: int, profile: bool):
     step, a deep-stem remat step, OHEM alone, and the entry point; see the
     module docstring.  Returns the fused steps' launches."""
     import dataclasses
-    import shutil
-    import tempfile
-
     import numpy as np
 
     from css_tpu_torch.cli import entries, train_main
@@ -1118,9 +1378,6 @@ def distributed_phase(torch, ck, smi: str, steps: int, train_ms: float, profile:
     """Data parallelism: a 1-rank NCCL group at the VOC width, two ranks
     through the driver's launcher, and a resume at another world size; see
     the module docstring.  Returns (the world-1 launches, each rank's)."""
-    import shutil
-    import tempfile
-
     _free(torch)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     try:
@@ -1238,11 +1495,21 @@ def main() -> int:
     train_ms = train["ms"]
     phase_done("contrastive + train")
     strategies_phase(torch, ck, train, args.steps, args.profile)
+    phase_done("strategies")
+    dense_launches, dense_rows = optin_steps_phase(torch, ck, train, smi, args.steps)
+    phase_done("opt-in steps")
     del train
     cross_entry_phase(torch, ck)
-    phase_done("strategies + cross entry point")
-    driver_phase(torch, ck, smi, args.profile)
-    phase_done("driver")
+    phase_done("cross entry point")
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        checkpoint = os.path.join(keep, "driver_last_model")
+        driver_phase(torch, ck, smi, args.profile, checkpoint)
+        phase_done("driver")
+        optin_entry_phase(torch, smi, checkpoint)
+        phase_done("opt-in entry points")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     city_launches = cityscapes_phase(torch, ck, smi, args.steps, args.profile)
     phase_done("cityscapes")
     dist_launches, rank_launches = distributed_phase(torch, ck, smi, args.steps, train_ms,
@@ -1261,9 +1528,11 @@ def main() -> int:
         # the distributed phase's paths: the 1-rank NCCL steps, each rank's run
         dist = dict(world_1_launches=dist_launches[name],
                     rank_launches=[r[name] for r in rank_launches])
+        # the expected_pallas steps' launches and the dense weights' timings
+        dense = dict(dense_rows[key], launches=dense_launches[name])
         rows.append(dict(name=name, route="cuda", source=source, replaces=f"{tpu}:{line_no}",
                          launches=launches[name], **kernels[key], cityscapes=city,
-                         distributed=dist))
+                         distributed=dist, expected_pallas=dense))
     line = {"kernels": rows}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -1,9 +1,12 @@
-"""The port's training entry points, counterpart of ``css_tpu/cli/entries.py``.
+"""The port's entry points, counterpart of ``css_tpu/cli/entries.py`` and of
+``css_tpu``'s ``evaluate.py`` and ``predict.py``.
 
     python -m css_tpu_torch.cli.entries ori --synthetic --num_labels 32 \\
         --total_iter 4 --max_steps 4
     python -m css_tpu_torch.cli.entries cross --synthetic --num_labels 16 \\
         --total_iter 4 --warmup 1
+    python -m css_tpu_torch.cli.entries evaluate --checkpoint <best_model> --synthetic
+    python -m css_tpu_torch.cli.entries predict --checkpoint <best_model> --inputs imgs/
 
 ``ori`` is the reference's ``ori_pseudo.py`` (logit-space pseudo-labels),
 ``mix`` its ``mix_label.py`` (agreement labels) and ``cross`` its
@@ -13,6 +16,10 @@ process each; or as one rank of a ``torchrun`` launch):
 
     python -m css_tpu_torch.cli.entries ori --num_devices 8
     torchrun --nproc_per_node 8 -m css_tpu_torch.cli.entries ori
+
+``evaluate`` (``cli/evaluate_main.py``) prints a checkpoint's per-class IoU
+and mIoU, ``predict`` (``cli/predict_main.py``) writes class maps of
+images; both on one device.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from css_tpu_torch.cli import evaluate_main, predict_main
 from css_tpu_torch.cli.train_main import add_common_args, run_training
 
 __all__ = ["ori_pseudo_parser", "ori_pseudo_main", "mix_label_parser", "mix_label_main",
@@ -81,15 +89,17 @@ def cross_label_main(argv=None) -> None:
     print(run_training("cross", cross_label_parser().parse_args(argv)))
 
 
-_MAINS = {"ori": ori_pseudo_main, "mix": mix_label_main, "cross": cross_label_main}
+_MAINS = {"ori": ori_pseudo_main, "mix": mix_label_main, "cross": cross_label_main,
+          "evaluate": evaluate_main.main, "predict": predict_main.main}
 
 
 def main(argv=None) -> None:
-    """``<strategy> [flags]``; the strategy is ``ori``, ``mix`` or ``cross``."""
+    """``<command> [flags]``; the command is a strategy (``ori``, ``mix``,
+    ``cross``), ``evaluate`` or ``predict``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] not in _MAINS:
-        raise SystemExit("usage: python -m css_tpu_torch.cli.entries {ori,mix,cross} [flags] "
-                         "(<strategy> --help lists them)")
+        raise SystemExit("usage: python -m css_tpu_torch.cli.entries "
+                         "{ori,mix,cross,evaluate,predict} [flags] (<command> --help lists them)")
     _MAINS[argv[0]](argv[1:])
 
 

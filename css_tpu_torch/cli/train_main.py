@@ -57,11 +57,10 @@ driver reads them: ``Network.backbone`` (``resnet101``, ``resnet101_stem``,
 indices; by default on when the crop area exceeds 512²) and
 ``Network.remat_policy``, ``Loss.sup_loss`` (``ohem`` by default for 19
 classes, else ``ce``) with ``Loss.ohem_thresh`` and
-``Loss.ohem_min_kept_per_image``, and ``Training_Setting.fused_forward``.
-
-What the JAX driver supports and the port does not yet is refused by name
-(``NotImplementedError``), never run as something else: the uint8
-augmentation law and the other negative modes.
+``Loss.ohem_min_kept_per_image``, ``Loss.negative_mode`` (``sampled_pallas``
+by default; ``sampled``, ``expected``, ``expected_pallas``),
+``Training_Setting.fused_forward`` and ``Training_Setting.aug_quantize``
+(the reference's uint8 augmentation law).
 """
 
 from __future__ import annotations
@@ -123,21 +122,6 @@ def add_common_args(parser, default_job: str):
     return parser
 
 
-def _refuse_unported(cfg, args) -> None:
-    """Raises NotImplementedError naming the first setting the port cannot
-    run yet, with its item in ROADMAP.md's Queue 1."""
-    quantize = cfg.get("Training_Setting.aug_quantize", False)
-    negative_mode = cfg.get("Loss.negative_mode", "sampled_pallas")
-    checks = [   # (setting, value, ported, queue item)
-        ("Training_Setting.aug_quantize", quantize, not quantize, 15),
-        ("Loss.negative_mode", negative_mode, negative_mode == "sampled_pallas", 15),
-    ]
-    for name, value, ported, item in checks:
-        if not ported:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to css_tpu_torch yet (item {item})")
-
-
 def _apply_cli_shadows(cfg, args, strategy: str) -> None:
     """``ori`` reads its thresholds from the YAML and flags given override
     them; ``mix`` and ``cross`` take them from the flags, with the reference
@@ -174,6 +158,38 @@ def _remat_setting(value):
     return bool(value)
 
 
+def _step_config(cfg, strategy: str, distributed: bool) -> StepConfig:
+    """The train step's settings as the YAML (after the flags) says."""
+    num_classes = cfg.require("Network.num_class")
+    return StepConfig(
+        num_classes=num_classes,
+        crop_hw=tuple(cfg.require("Dataset.crop_size")),
+        scale_range=tuple(cfg.require("Dataset.scale_size")),
+        strategy=strategy,
+        mix_mode=cfg.get("Dataset.mix_mode", "cutmix"),
+        mix_partner=cfg.get("Distributed.mix_partner", "reference"),
+        # by the class count (19: the Cityscapes taxonomy), not Dataset.name,
+        # which --synthetic rewrites
+        sup_loss=cfg.get("Loss.sup_loss", "ohem" if num_classes == 19 else "ce"),
+        ohem_thresh=cfg.get("Loss.ohem_thresh", 0.7),
+        ohem_min_kept_per_image=cfg.get("Loss.ohem_min_kept_per_image", 50000),
+        un_threshold=cfg.get("Loss.un_threshold", 0.97),
+        weak_threshold=cfg.get("Loss.weak_threshold", 0.7),
+        strong_threshold=cfg.get("Loss.strong_threshold", 0.97),
+        temp=cfg.get("Loss.temp", 0.5),
+        rep_temp=cfg.get("Loss.rep_temp", cfg.get("Loss.temp", 0.5)),
+        num_queries=cfg.get("Loss.num_queries", 256),
+        num_negatives=cfg.get("Loss.num_negatives", 512),
+        proto_alpha=cfg.get("Loss.alpha", 0.99),
+        ema_alpha=cfg.get("EMA.alpha", 0.99),
+        contrast_enabled=bool(cfg.get("Loss.is_available", True)),
+        negative_mode=cfg.get("Loss.negative_mode", "sampled_pallas"),
+        aug_quantize=bool(cfg.get("Training_Setting.aug_quantize", False)),
+        fused_forward=bool(cfg.get("Training_Setting.fused_forward", False)),
+        distributed=distributed,
+    )
+
+
 def _build_state_and_steps(cfg, args, device, strategy: str = "ori", distributed: bool = False):
     """The train state on ``device``, the step config, the train step and
     the eval step, as the YAML and the flags say; ``distributed``: the model
@@ -201,32 +217,7 @@ def _build_state_and_steps(cfg, args, device, strategy: str = "ori", distributed
         power=float(cfg.get("Lr_Scheduler.power", 0.9)),
         min_lr=float(cfg.get("Lr_Scheduler.min_lr", 1e-4)),
         device=device)
-    step_cfg = StepConfig(
-        num_classes=num_classes,
-        crop_hw=crop,
-        scale_range=tuple(cfg.require("Dataset.scale_size")),
-        strategy=strategy,
-        mix_mode=cfg.get("Dataset.mix_mode", "cutmix"),
-        mix_partner=cfg.get("Distributed.mix_partner", "reference"),
-        # by the class count (19: the Cityscapes taxonomy), not Dataset.name,
-        # which --synthetic rewrites
-        sup_loss=cfg.get("Loss.sup_loss", "ohem" if num_classes == 19 else "ce"),
-        ohem_thresh=cfg.get("Loss.ohem_thresh", 0.7),
-        ohem_min_kept_per_image=cfg.get("Loss.ohem_min_kept_per_image", 50000),
-        un_threshold=cfg.get("Loss.un_threshold", 0.97),
-        weak_threshold=cfg.get("Loss.weak_threshold", 0.7),
-        strong_threshold=cfg.get("Loss.strong_threshold", 0.97),
-        temp=cfg.get("Loss.temp", 0.5),
-        rep_temp=cfg.get("Loss.rep_temp", cfg.get("Loss.temp", 0.5)),
-        num_queries=cfg.get("Loss.num_queries", 256),
-        num_negatives=cfg.get("Loss.num_negatives", 512),
-        proto_alpha=cfg.get("Loss.alpha", 0.99),
-        ema_alpha=cfg.get("EMA.alpha", 0.99),
-        contrast_enabled=bool(cfg.get("Loss.is_available", True)),
-        negative_mode=cfg.get("Loss.negative_mode", "sampled_pallas"),
-        fused_forward=bool(cfg.get("Training_Setting.fused_forward", False)),
-        distributed=distributed,
-    )
+    step_cfg = _step_config(cfg, strategy, distributed)
     return (state, step_cfg, make_train_step(step_cfg),
             make_eval_step(state.teacher, num_classes))
 
@@ -307,21 +298,26 @@ def _epoch_batches(train_l, u_iter):
 
 
 def _evaluate(eval_step, test_loader, crop, num_classes: int, seed: int, eval_index: int,
-              device: torch.device) -> ConfusionMatrix:
+              device: torch.device, full_canvas: bool = False) -> ConfusionMatrix:
     """Teacher eval: one random crop of each validation image (the
-    reference's test protocol), the confusion matrix accumulated on the
-    device, summed over the ranks (each evaluates its shard) and read once
-    at the end."""
+    reference's test protocol; the crops of batch ``b`` drawn from
+    ``(seed, eval_index, b)``), or with ``full_canvas`` the whole canvas for
+    a sliding-window ``eval_step`` (the padded canvas carries label -1), the
+    confusion matrix accumulated on the device, summed over the ranks (each
+    evaluates its shard) and read once at the end."""
     mat = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     for bi, batch in enumerate(_device_prefetch(test_loader, device)):
         img = to_channel_first(batch["image"].float() / 255.0)
         lab = batch["label"]
         lab = torch.where((lab >= 0) & (lab < num_classes), lab, -1)
         b, _, hh, ww = img.shape
-        draws = sample_augment_draws(_generator(device, seed, eval_index, bi), b, (1.0, 1.0),
-                                     photometric=False)
-        img_c, lab_c, _ = batch_transform(img, lab[:, None], img.new_zeros((b, 1, hh, ww)),
-                                          batch["valid_hw"], crop, **draws.as_kwargs())
+        if full_canvas:
+            img_c, lab_c = img, lab[:, None]
+        else:
+            draws = sample_augment_draws(_generator(device, seed, eval_index, bi), b, (1.0, 1.0),
+                                         photometric=False)
+            img_c, lab_c, _ = batch_transform(img, lab[:, None], img.new_zeros((b, 1, hh, ww)),
+                                              batch["valid_hw"], crop, **draws.as_kwargs())
         mat = eval_step(mat, to_channel_last(normalize_imagenet(img_c)), lab_c[:, 0],
                         batch["valid"])
     if parallel.is_initialized():
@@ -363,12 +359,16 @@ def run_training(strategy: str, args) -> dict:
     world = 1 if args.num_devices is None else args.num_devices
     if world < 1:
         raise ValueError(f"--num_devices {world}: need at least one device")
-    if world == 1:
-        return train_on(device, strategy, args)
     if device.type == "cuda" and world > torch.cuda.device_count():
         raise ValueError(f"--num_devices {world} exceeds the {torch.cuda.device_count()} "
                          f"CUDA devices of this host")
-    _refuse_unported(load_config(args.config), args)   # before any process starts
+    # what the step refuses (an unknown mode or loss) is refused before any
+    # file is written or any rank starts
+    cfg = load_config(args.config)
+    _apply_cli_shadows(cfg, args, strategy)
+    make_train_step(_step_config(cfg, strategy, distributed=world > 1))
+    if world == 1:
+        return train_on(device, strategy, args)
     devices = ([f"cuda:{r}" for r in range(world)] if device.type == "cuda"
                else ["cpu"] * world)
     return parallel.spawn(train_on, (strategy, args), world, parallel.backend_for(device),
@@ -379,7 +379,6 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
     """The training loop of one rank on ``device`` (of the default process
     group when there is one; alone otherwise); returns its result."""
     cfg = load_config(args.config)
-    _refuse_unported(cfg, args)
     _apply_cli_shadows(cfg, args, strategy)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True

@@ -11,8 +11,12 @@ scale ratio and the crop-offset uniforms, and for the photometric calls the
 jitter flag, the four jitter factors, the jitter op order, the blur flag and
 sigma, and the flip flag.  Mixing (``MixDraws``): box width and corner
 uniforms for CutOut and CutMix, per-slot scores for ClassMix, nothing for
-``none``.  Contrastive loss (``ContrastDraws``): 24-bit tie-break keys,
-anchor uniforms and the uniforms of the thinned multiplicities.
+``none``.  Contrastive loss (``ContrastDraws``), as the negative mode
+consumes them: 24-bit tie-break keys and anchor uniforms in every mode, and
+``sampled_pallas``: the uniforms of the thinned multiplicities; ``sampled``:
+tie-break keys for the order of all member pixels and the class and pixel
+uniforms of every anchor's negatives; ``expected``/``expected_pallas``:
+nothing more.
 """
 
 from __future__ import annotations
@@ -22,8 +26,11 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["AugmentDraws", "MixDraws", "ContrastDraws", "StepDraws",
-           "sample_augment_draws", "sample_mix_draws", "sample_step_draws"]
+from css_tpu_torch.losses.contrastive import NEGATIVE_MODES
+
+__all__ = ["AugmentDraws", "MixDraws", "ContrastDraws", "StepDraws", "NEGATIVE_MODES",
+           "sample_augment_draws", "sample_mix_draws", "sample_contrast_draws",
+           "sample_step_draws"]
 
 BRIGHTNESS = CONTRAST = SATURATION = (0.75, 1.25)
 HUE = (-0.25, 0.25)
@@ -60,9 +67,12 @@ class MixDraws(_Draws):
 
 @dataclasses.dataclass
 class ContrastDraws(_Draws):
-    tie: torch.Tensor     # [N] int32, 24 random bits
-    u1: torch.Tensor      # [C, Q] f32 anchor uniforms
-    u: torch.Tensor       # [C, N] f32 thinning uniforms
+    tie: torch.Tensor                       # [N] int32, 24 random bits (hard-anchor order)
+    u1: torch.Tensor                        # [C, Q] f32 anchor uniforms
+    u: Optional[torch.Tensor] = None        # [C, N] f32 thinning uniforms (sampled_pallas)
+    tie_all: Optional[torch.Tensor] = None  # [N] int32, 24 random bits (sampled: member order)
+    u_cls: Optional[torch.Tensor] = None    # [C, Q * G] f32 negative-class uniforms (sampled)
+    u_pix: Optional[torch.Tensor] = None    # [C, Q * G] f32 negative-pixel uniforms (sampled)
 
 
 @dataclasses.dataclass
@@ -106,6 +116,26 @@ def sample_mix_draws(g: torch.Generator, mode: str, b: int, crop_w: int,
     return MixDraws()
 
 
+def _tie(g: torch.Generator, n: int) -> torch.Tensor:
+    return torch.randint(0, 1 << 24, (n,), generator=g, device=g.device, dtype=torch.int32)
+
+
+def sample_contrast_draws(g: torch.Generator, mode: str, num_classes: int, num_queries: int,
+                          num_negatives: int, rows: int) -> ContrastDraws:
+    """What ``prototype_contrastive_loss(negative_mode=mode)`` consumes for a
+    table of ``rows`` pixels."""
+    if mode not in NEGATIVE_MODES:
+        raise ValueError(f"unknown negative_mode {mode!r} (one of {NEGATIVE_MODES})")
+    draws = ContrastDraws(tie=_tie(g, rows), u1=_uniform(g, (num_classes, num_queries)))
+    if mode == "sampled_pallas":
+        draws.u = _uniform(g, (num_classes, rows))
+    elif mode == "sampled":
+        draws.tie_all = _tie(g, rows)
+        draws.u_cls = _uniform(g, (num_classes, num_queries * num_negatives))
+        draws.u_pix = _uniform(g, (num_classes, num_queries * num_negatives))
+    return draws
+
+
 def sample_step_draws(generator: torch.Generator, cfg, l_batch: int, u_batch: int,
                       rep_pixels: int) -> StepDraws:
     """Draws for one step of ``cfg`` (a ``StepConfig``): ``l_batch`` labeled
@@ -120,9 +150,6 @@ def sample_step_draws(generator: torch.Generator, cfg, l_batch: int, u_batch: in
         t_crop=sample_augment_draws(g, u_batch, cfg.scale_range, False),
         u_aug=sample_augment_draws(g, u_batch, (1.0, 1.0), True),
         mix=sample_mix_draws(g, cfg.mix_mode, u_batch, cfg.crop_hw[1], cfg.num_classes),
-        contrast=ContrastDraws(
-            tie=torch.randint(0, 1 << 24, (rep_pixels,), generator=g, device=g.device,
-                              dtype=torch.int32),
-            u1=_uniform(g, (cfg.num_classes, cfg.num_queries)),
-            u=_uniform(g, (cfg.num_classes, rep_pixels))),
+        contrast=sample_contrast_draws(g, cfg.negative_mode, cfg.num_classes, cfg.num_queries,
+                                       cfg.num_negatives, rep_pixels),
     )

@@ -30,6 +30,10 @@ mines the contrastive anchors:
   target switches to the representation-space labels when
   ``use_rep_labels`` is true.
 
+``aug_quantize`` runs every augmentation hop under the reference's uint8
+law (``ops/augment.py``, ``ops/photometric.py``); ``negative_mode`` picks
+the contrastive loss's negatives (``losses/contrastive.py``).
+
 Mixed precision mirrors the JAX casts explicitly (no autocast): the model
 casts conv weights and activations to its ``dtype``; BatchNorm statistics,
 model outputs and losses are f32.  Every random draw arrives in ``draws``
@@ -48,12 +52,14 @@ step adds no host synchronisation.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Tuple
 
 import torch
 
-from css_tpu_torch.losses.contrastive import l2_normalize, prototype_contrastive_loss
+from css_tpu_torch.losses.contrastive import (NEGATIVE_MODES, l2_normalize,
+                                              prototype_contrastive_loss)
 from css_tpu_torch.losses.cross_entropy import cross_entropy, ohem_cross_entropy
 from css_tpu_torch.losses.threshold import attention_threshold_loss
 from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet,
@@ -61,11 +67,13 @@ from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet,
 from css_tpu_torch.ops.interpolate import bilinear_resize, nearest_resize
 from css_tpu_torch.ops.mixing import MIX_MODES, PARTNERS, mix_batch
 from css_tpu_torch.ops.onehot import label_onehot, label_onehot_ignore
+from css_tpu_torch.ops.photometric import exact_div
 from css_tpu_torch.parallel.mesh import all_reduce_sum, mean_gradients, world_size
 from css_tpu_torch.train.draws import StepDraws
 from css_tpu_torch.train.state import TrainState, ema_update
 
-__all__ = ["StepConfig", "STRATEGIES", "SUP_LOSSES", "make_train_step", "make_eval_step"]
+__all__ = ["StepConfig", "STRATEGIES", "SUP_LOSSES", "make_train_step", "make_eval_step",
+           "make_sliding_eval_step", "window_probs", "eval_mode"]
 
 STRATEGIES = ("ori", "mix", "cross")
 SUP_LOSSES = ("ce", "ohem")
@@ -73,8 +81,7 @@ SUP_LOSSES = ("ce", "ohem")
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Hyper-parameters of the train step (the JAX ``StepConfig`` fields the
-    ported paths read; the others wait for their slices)."""
+    """Hyper-parameters of the train step, the JAX ``StepConfig``'s fields."""
 
     num_classes: int
     crop_hw: Tuple[int, int]
@@ -95,7 +102,8 @@ class StepConfig:
     proto_alpha: float = 0.99
     ema_alpha: float = 0.99
     contrast_enabled: bool = True             # Loss.is_available in the YAML
-    negative_mode: str = "sampled_pallas"
+    negative_mode: str = "sampled_pallas"     # one of losses/contrastive.py's NEGATIVE_MODES
+    aug_quantize: bool = False                # the reference's uint8 law at every aug hop
     fused_forward: bool = False               # one pass over labeled + unlabeled
     distributed: bool = False                 # reduce over the default process group
 
@@ -107,9 +115,10 @@ def _remap_ignore(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 def _to01_cf(images: torch.Tensor) -> torch.Tensor:
-    """NHWC uint8/float canvas -> channel-first float [0, 1]."""
+    """NHWC uint8/float canvas -> channel-first float [0, 1] (k / 255 rounded
+    once, on the card too: the uint8 law truncates right after)."""
     if images.dtype == torch.uint8:
-        images = images.float() / 255.0
+        images = exact_div(images.float(), 255.0)
     return to_channel_first(images)
 
 
@@ -139,10 +148,10 @@ def make_train_step(cfg: StepConfig):
         raise ValueError(f"unknown mix partner {cfg.mix_partner!r} (one of {PARTNERS})")
     if cfg.sup_loss not in SUP_LOSSES:
         raise ValueError(f"unknown sup_loss {cfg.sup_loss!r} (one of {SUP_LOSSES})")
-    if cfg.negative_mode != "sampled_pallas":
-        raise NotImplementedError(f"negative_mode={cfg.negative_mode!r} is not ported yet "
-                                  "(the port has 'sampled_pallas')")
+    if cfg.negative_mode not in NEGATIVE_MODES:
+        raise ValueError(f"unknown negative_mode {cfg.negative_mode!r} (one of {NEGATIVE_MODES})")
     ch, cw = cfg.crop_hw
+    quantize = cfg.aug_quantize
     c = cfg.num_classes
 
     def pseudo_labels(state: TrainState, l_img: torch.Tensor, u_img: torch.Tensor):
@@ -177,12 +186,12 @@ def make_train_step(cfg: StepConfig):
         labels, confs = pseudo_labels(state, l_img, to_channel_last(normalize_imagenet(u_img01)))
         full_hw = torch.tensor([ch, cw], device=u_img01.device).expand(u_img01.shape[0], 2)
         img01, labels, confs = batch_transform(u_img01, labels, confs, full_hw, (ch, cw),
-                                               **draws.t_crop.as_kwargs())
+                                               **draws.t_crop.as_kwargs(), quantize=quantize)
         img01, labels, confs = mix_batch(img01, labels, confs, mode=cfg.mix_mode,
                                          distributed=cfg.distributed, partner=cfg.mix_partner,
                                          **draws.mix.as_kwargs())
         img01, labels, confs = batch_transform(img01, labels, confs, full_hw, (ch, cw),
-                                               **draws.u_aug.as_kwargs())
+                                               **draws.u_aug.as_kwargs(), quantize=quantize)
         return to_channel_last(normalize_imagenet(img01)), labels, confs
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: StepDraws,
@@ -195,7 +204,7 @@ def make_train_step(cfg: StepConfig):
             l_labels0 = _remap_ignore(batch["l_label"], c)[:, None]
             l_img01, l_labels, _ = batch_transform(
                 l_canvas, l_labels0, l_canvas.new_zeros((bl, 1, lh, lw)),
-                batch["l_valid_hw"], (ch, cw), **draws.l_aug.as_kwargs())
+                batch["l_valid_hw"], (ch, cw), **draws.l_aug.as_kwargs(), quantize=quantize)
             l_img = to_channel_last(normalize_imagenet(l_img01))
             l_label = l_labels[:, 0]
 
@@ -204,7 +213,7 @@ def make_train_step(cfg: StepConfig):
             u_img01, _, _ = batch_transform(
                 u_canvas, torch.zeros((bu, 1, uh, uw), dtype=torch.long, device=u_canvas.device),
                 u_canvas.new_zeros((bu, 1, uh, uw)), batch["u_valid_hw"], (ch, cw),
-                **draws.u_crop.as_kwargs())
+                **draws.u_crop.as_kwargs(), quantize=quantize)
             u_img, u_labels, u_confs = pseudo_label_phase(state, l_img, u_img01, draws)
         # cross switches the unsupervised target to the representation space;
         # the contrastive labels and the weak mask stay logit-space
@@ -251,7 +260,7 @@ def make_train_step(cfg: StepConfig):
                 rep_all, label_all, torch.cat([mask_l, mask_u]), prob_all, state.prototypes,
                 **draws.contrast.as_kwargs(), num_negatives=cfg.num_negatives, temp=cfg.temp,
                 strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha,
-                distributed=cfg.distributed)
+                distributed=cfg.distributed, negative_mode=cfg.negative_mode)
         else:
             contrast, new_protos = sup.new_zeros(()), state.prototypes
         total = sup + unsup + contrast * contrast_weight
@@ -292,6 +301,17 @@ def _conf_matrix_delta(yhat: torch.Tensor, label: torch.Tensor, valid: torch.Ten
     return torch.bincount(idx.reshape(-1), minlength=c * c + 1)[:-1].reshape(c, c)
 
 
+@contextlib.contextmanager
+def eval_mode(model):
+    """``model`` in eval mode inside the block, its mode restored after."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train(was_training)
+
+
 def make_eval_step(model, num_classes: int, flip: bool = False, scales=(1.0,)):
     """Build ``eval_step(conf_mat, image, label, valid) -> conf_mat``, the
     confusion-matrix accumulation over ``model`` (the EMA teacher) in eval
@@ -314,9 +334,7 @@ def make_eval_step(model, num_classes: int, flip: bool = False, scales=(1.0,)):
 
     @torch.no_grad()
     def eval_step(conf_mat, image, label, valid):
-        was_training = model.training
-        model.eval()
-        try:
+        with eval_mode(model):
             out_hw = label.shape[1:3]
             if plain:
                 yhat = torch.argmax(_logits(image, out_hw), dim=-1)
@@ -332,8 +350,79 @@ def make_eval_step(model, num_classes: int, flip: bool = False, scales=(1.0,)):
                         flipped = _logits(im.flip(2), out_hw).float()
                         prob = prob + torch.softmax(flipped, dim=-1).flip(2)
                 yhat = torch.argmax(prob, dim=-1)
-        finally:
-            model.train(was_training)
+        return conf_mat + _conf_matrix_delta(yhat, label, valid, num_classes)
+
+    return eval_step
+
+
+def _tile_origins(full: int, crop: int, stride: int):
+    """Window origins covering [0, full) every ``stride``, the last window
+    clamped to end at ``full``."""
+    if full <= crop:
+        return [0]
+    xs = list(range(0, full - crop + 1, stride))
+    if xs[-1] != full - crop:
+        xs.append(full - crop)
+    return xs
+
+
+def window_probs(model, image: torch.Tensor, crop_hw, stride_hw, num_classes: int):
+    """[B, H, W, C] f32 coverage-averaged softmax of ``model`` over windows of
+    ``crop_hw`` sliding by ``stride_hw`` across the NHWC ``image`` (zero-padded
+    up to the crop when smaller): each window's logits are upsampled to the
+    window with ``bilinear_resize(align_corners=True)`` and its softmax is
+    added to a canvas map beside a coverage count."""
+    ch, cw = crop_hw
+    b, h, w = image.shape[0], int(image.shape[1]), int(image.shape[2])
+    ph, pw = max(h, ch), max(w, cw)
+    if (ph, pw) != (h, w):
+        image = torch.nn.functional.pad(image, (0, 0, 0, pw - w, 0, ph - h))
+    acc = torch.zeros((b, ph, pw, num_classes), dtype=torch.float32, device=image.device)
+    cnt = torch.zeros((ph, pw, 1), dtype=torch.float32, device=image.device)
+    for oy in _tile_origins(ph, ch, stride_hw[0]):
+        for ox in _tile_origins(pw, cw, stride_hw[1]):
+            pred, _ = model(image[:, oy:oy + ch, ox:ox + cw])
+            logits = bilinear_resize(pred, (ch, cw), align_corners=True)
+            acc[:, oy:oy + ch, ox:ox + cw] += torch.softmax(logits.float(), dim=-1)
+            cnt[oy:oy + ch, ox:ox + cw] += 1.0
+    return (acc / torch.clamp_min(cnt, 1.0))[:, :h, :w]
+
+
+def make_sliding_eval_step(model, num_classes: int, canvas_hw, crop_hw, stride_hw=None,
+                           flip: bool = False, scales=(1.0,)):
+    """Build ``eval_step(conf_mat, image, label, valid) -> conf_mat`` (the
+    signature of :func:`make_eval_step`'s) over the whole canvas with
+    overlapping crop-sized windows: the benchmark protocol, in place of the
+    reference's one random crop.
+
+    Per canvas variant (each scale of ``scales``, rounded to multiples of 8,
+    and its mirror image when ``flip``): :func:`window_probs` over the
+    static origin table (``_tile_origins`` per axis, stride ``stride_hw``, by
+    default 2/3 of the crop), mirrored back and resized to the canvas.  The
+    argmax of the variants' sum feeds the confusion matrix.
+    """
+    ch, cw = crop_hw
+    fh, fw = canvas_hw
+    sh, sw = stride_hw or (2 * ch // 3, 2 * cw // 3)
+    scales = tuple(float(s) for s in scales)
+
+    @torch.no_grad()
+    def eval_step(conf_mat, image, label, valid):
+        with eval_mode(model):
+            total = 0
+            for s in scales:
+                im = image if s == 1.0 else bilinear_resize(
+                    image, (_round_to_multiple(fh * s), _round_to_multiple(fw * s)),
+                    align_corners=True)
+                variants = [(im, False)] + ([(im.flip(2), True)] if flip else [])
+                for v, mirrored in variants:
+                    p = window_probs(model, v, crop_hw, (sh, sw), num_classes)
+                    if mirrored:
+                        p = p.flip(2)
+                    if s != 1.0:
+                        p = bilinear_resize(p, (fh, fw), align_corners=True)
+                    total = total + p
+            yhat = torch.argmax(total, dim=-1)
         return conf_mat + _conf_matrix_delta(yhat, label, valid, num_classes)
 
     return eval_step

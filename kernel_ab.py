@@ -48,11 +48,11 @@ def main() -> int:
     flush = smoke._l2_flush(torch)
     g = torch.Generator(device="cuda").manual_seed(0)
     for kind in ("dead_half", "thinned", "scattered"):
-        a, r, w = smoke._kernel_inputs(torch, ck, g, kind)
+        a, r, w = smoke._kernel_inputs(torch, ck, g, kind, smoke.N_VOC)
         live = int(torch.count_nonzero(w))
         for name, fn in (("k1", ck.softsum_kernel), ("k2", ck.softsum_moment_kernel)):
             ms, device_ms = smoke._timed(torch, lambda: fn(a, r, w, smoke.INV_TEMP),
-                                         20, flush)
+                                         20, flush, smoke.FIRST_KERNEL)
             print(json.dumps(dict(label=label, kernel=name, w=kind, live_rows=live, ms=ms,
                                   device_ms=device_ms)), flush=True)
         del a, r, w

@@ -86,8 +86,9 @@ def test_shipped_cityscapes_yaml_builds_its_recipe(tmp_path):
     cfg = load_config(SHIPPED)
     args = entries.ori_pseudo_parser().parse_args(["--config", SHIPPED, "--synthetic",
                                                    "--device", "cpu"])
-    train_main._refuse_unported(cfg, args)
+    train_main.make_train_step(train_main._step_config(cfg, "ori", False))   # the parent's check
     state, step_cfg, _, _ = train_main._build_state_and_steps(cfg, args, torch.device("cpu"))
+    assert (step_cfg.negative_mode, step_cfg.aug_quantize) == ("sampled_pallas", False)
     assert step_cfg.num_classes == 19 and step_cfg.crop_hw == (769, 769)
     assert (step_cfg.sup_loss, step_cfg.ohem_thresh, step_cfg.ohem_min_kept_per_image) == (
         "ohem", 0.7, 50000)

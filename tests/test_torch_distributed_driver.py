@@ -135,12 +135,20 @@ def test_more_devices_than_cards_are_refused(tmp_path, monkeypatch):
 
 
 def test_unported_settings_are_refused_before_any_rank_starts(tmp_path, monkeypatch):
+    """The once-unported settings pass the parent's check and reach the
+    spawn; a setting the step refuses (an unknown negative mode) raises
+    ValueError in the parent, before any rank starts."""
     spawned = []
-    monkeypatch.setattr(parallel, "spawn", lambda *a, **kw: spawned.append(a))
-    config = _tiny_yaml(tmp_path, **{"Training_Setting.aug_quantize": True})
-    with pytest.raises(NotImplementedError, match="Training_Setting.aug_quantize"):
-        train_main.run_training("ori", _args(config, "refused", "--num_devices", "2"))
-    assert not spawned and not (tmp_path / "ckpt").exists()
+    monkeypatch.setattr(parallel, "spawn", lambda *a, **kw: spawned.append(a) or [{}])
+    (tmp_path / "bad").mkdir()
+    bad = _tiny_yaml(tmp_path / "bad", **{"Loss.negative_mode": "bogus"})
+    with pytest.raises(ValueError, match="unknown negative_mode"):
+        train_main.run_training("ori", _args(bad, "refused", "--num_devices", "2"))
+    assert not spawned and not (tmp_path / "bad" / "ckpt").exists()
+    config = _tiny_yaml(tmp_path, **{"Training_Setting.aug_quantize": True,
+                                     "Loss.negative_mode": "expected_pallas"})
+    train_main.run_training("ori", _args(config, "opt_in", "--num_devices", "2"))
+    assert len(spawned) == 1 and spawned[0][2] == 2
 
 
 def test_sigterm_on_one_rank_stops_both_at_the_next_check(tmp_path):

@@ -42,6 +42,7 @@ from css_tpu_torch.models.deeplabv3 import build_model
 from css_tpu_torch.train.checkpoint import load_prototypes, restore_checkpoint, save_checkpoint
 from css_tpu_torch.train.state import create_train_state
 from tests.test_torch_train_step import LIVE_UNSUP, _assert_step, _run
+from tests._torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = ("VOC_config_baseline.yaml", "CityScapes_config_baseline.yaml")
@@ -446,28 +447,48 @@ def test_labeled_split_smaller_than_a_batch_fails_fast(tmp_path):
     ("Loss.negative_mode", {"Loss.negative_mode": "expected_pallas"}, ()),
     ("Dataset.mix_mode", {"Dataset.mix_mode": "classmix"}, ()),
 ], ids=lambda v: v if isinstance(v, str) else None)
-def test_driver_refuses_what_is_not_ported_by_name(tmp_path, key, override, flags):
-    config = _tiny_yaml(tmp_path, **override)
-    args = entries.ori_pseudo_parser().parse_args(
-        ["--config", config, "--device", "cpu", "--synthetic", *flags])
+def test_driver_refuses_what_is_not_ported_by_name(tmp_path, monkeypatch, key, override, flags):
+    """Every setting the driver once refused is ported: each trains a step
+    through the entry points, as the YAML says (``mix``, and ``cross`` with
+    ClassMix, with the uint8 law and the ``sampled`` negatives, as once
+    refused under them; ``ori`` in each other negative mode and with the
+    uint8 law); what nobody can run, an unknown strategy or negative mode,
+    raises ValueError before any work."""
+    seen = _probe_run(monkeypatch)
     if key in ("strategy", "Dataset.mix_mode"):
-        # ported since: mix and cross (with any mix mode) pass the checks,
-        # and what the port cannot run is refused under them as under ori
-        (tmp_path / "quantize").mkdir()
-        refused = _tiny_yaml(tmp_path / "quantize", **override,
-                             **{"Training_Setting.aug_quantize": True})
-        for strategy in ("mix", "cross"):
-            train_main._refuse_unported(load_config(config), args)
-            with pytest.raises(NotImplementedError, match="Training_Setting.aug_quantize"):
-                train_main.run_training(strategy, entries.mix_label_parser().parse_args(
-                    ["--config", refused, "--device", "cpu", "--synthetic"]))
+        config = _tiny_yaml(tmp_path, **override, **{"Training_Setting.aug_quantize": True,
+                                                     "Loss.negative_mode": "sampled"})
+        for strategy in (("mix",) if key == "strategy" else ("cross",)):
+            result = train_main.run_training(strategy, entries.mix_label_parser().parse_args(
+                ["--config", config, "--device", "cpu", "--synthetic", "--num_labels", "4",
+                 "--total_iter", "2", "--max_steps", "1", "--job_name", strategy]))
+            assert result["steps"] == 1
+            cfg = seen["cfg"]
+            assert (cfg.strategy, cfg.aug_quantize, cfg.negative_mode) == (strategy, True,
+                                                                          "sampled")
+            assert cfg.mix_mode == override.get("Dataset.mix_mode", "cutmix")
         with pytest.raises(ValueError, match="unknown strategy"):
-            train_main.run_training("bogus", args)
-        assert not (tmp_path / "quantize" / "ckpt").exists()
+            train_main.run_training("bogus", entries.ori_pseudo_parser().parse_args(
+                ["--config", config, "--device", "cpu", "--synthetic"]))
     else:
-        with pytest.raises(NotImplementedError, match=re.escape(key)):
-            train_main.run_training("ori", args)
-    assert not (tmp_path / "ckpt").exists()      # refused before any work
+        # the negative-mode case trains each of the modes once refused
+        values = (("expected", "expected_pallas", "sampled") if key == "Loss.negative_mode"
+                  else (override[key],))
+        name = key.split(".")[1]
+        for value in values:
+            run_dir = tmp_path / f"run_{value}"
+            run_dir.mkdir()
+            config = _tiny_yaml(run_dir, **{key: value})
+            result = _train(config, "opt_in", "--synthetic", "--total_iter", "2",
+                            "--max_steps", "1", *flags)
+            assert result["steps"] == 1
+            assert getattr(seen["cfg"], name) == value
+        (tmp_path / "bogus").mkdir()
+        bogus = _tiny_yaml(tmp_path / "bogus", **{"Loss.negative_mode": "bogus"})
+        with pytest.raises(ValueError, match="unknown negative_mode"):
+            _train(bogus, "bogus", "--synthetic")
+        assert not (tmp_path / "bogus" / "ckpt").exists()      # refused before any work
+    assert all(np.isfinite(list(m.values())).all() for m in seen["metrics"])
 
 
 def _probe_run(monkeypatch):

@@ -48,6 +48,7 @@ def _port_files():
 def test_port_imports_neither_jax_nor_css_tpu():
     files = _port_files()
     assert len(files) > 10
+    assert {"evaluate_main.py", "predict_main.py", "draws.py"} <= {p.name for p in files}
     bad = []
     for path in files:
         for mod in _imported_modules(path):

@@ -201,3 +201,32 @@ def test_kernels_launch_on_their_tensors_device(cuda):
                                rtol=1e-3, atol=1e-6)
     _close_m(m, ck.softsum_moment_plain(a.detach().to(torch.bfloat16), r, w, 2.0))
     assert torch.isfinite(a.grad).all()
+
+
+@pytest.mark.gpu
+def test_dense_weights_forward_and_backward_match_plain(cuda):
+    """``weighted_exp_softsum`` as ``expected_pallas`` calls it: one class's
+    dense weights p[class(n)] / count(class(n)) over every member row (a
+    step-like density: 80% of the 262,144 rows members, 21 classes, the
+    anchor class's own rows weightless), forward and backward against the
+    same autograd graph through the plain versions on the CPU."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    n, q, d, c = 262_144, 256, 256, 21
+    cls = torch.randint(0, c, (n,), generator=g)
+    member = torch.rand(n, generator=g) < 0.8
+    counts = torch.bincount(cls[member], minlength=c).float()
+    p = torch.softmax(torch.randn(c, generator=g), dim=0)
+    p[0] = 0.0                                          # the anchors' own class
+    w = torch.where(member, p[cls] / counts[cls].clamp_min(1.0), torch.zeros(()))
+    a = torch.nn.functional.normalize(torch.randn(q, d, generator=g), dim=1)
+    r = torch.nn.functional.normalize(torch.randn(n, d, generator=g), dim=1).to(torch.bfloat16)
+    upstream = torch.rand(q, generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x = a.to(dev).requires_grad_(True)
+        s = ck.weighted_exp_softsum(x, r.to(dev), w.to(dev), 2.0)
+        (s * upstream.to(dev)).sum().backward()
+        out[dev] = (s.detach().cpu(), x.grad.cpu())
+    assert 0.7 * n < int((w > 0).sum()) < 0.8 * n
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-6)
+    _close_m(out["cuda"][1], out["cpu"][1])

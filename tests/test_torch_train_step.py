@@ -180,5 +180,10 @@ def test_step_refuses_paths_not_ported():
         make_train_step(StepConfig(**CFG, mix_mode="bogus"))
     with pytest.raises(ValueError, match="sup_loss"):
         make_train_step(StepConfig(**CFG, sup_loss="focal"))
-    with pytest.raises(NotImplementedError, match="negative_mode"):
-        make_train_step(StepConfig(**CFG, negative_mode="expected"))
+    # ported: the other negative modes (tests/test_torch_negative_mode_steps.py)
+    # and the uint8 augmentation law (tests/test_torch_quantized_step.py)
+    for mode in ("sampled_pallas", "sampled", "expected", "expected_pallas"):
+        assert callable(make_train_step(StepConfig(**CFG, negative_mode=mode,
+                                                   aug_quantize=True)))
+    with pytest.raises(ValueError, match="negative_mode"):
+        make_train_step(StepConfig(**CFG, negative_mode="bogus"))
