@@ -154,7 +154,36 @@ exit code, and no result line:
    matrices must equal the one-process one;
 14. os16: the VOC ``ori`` step at output stride 16 (ASPP rates 6, 12, 18)
    and at 8, 1 warm-up + ``--steps`` timed each from random weights: finite
-   losses, 21 launches per kernel a step, ms/step and peak of each.
+   losses, 21 launches per kernel a step, ms/step and peak of each;
+15. recovery: the driver's fault recovery through the entry point on the
+   shipped VOC YAML (``ori``, ``--synthetic --num_labels 16 --total_iter
+   6``: 3 epochs of 2 steps, an eval after each; the checkpoints are
+   recorded, not written), with real allocator failures on the card (an
+   allocation of the card's whole memory and 1 GiB more) injected from
+   inside the step by patching.  (a) Unfaulted.  (b) A forward hook on the
+   student's trunk fails at the 4th attempt, after the teacher's and the
+   student's BN stats moved: the state the retry is given must equal, by
+   SHA-256, the state the failed attempt was given, the run must end at
+   step 6, and its final state must equal (a)'s bit for bit.  Both run
+   under ``torch.use_deterministic_algorithms`` and cuDNN's deterministic
+   picks (by default two runs on the card differ in the last bits); where
+   they still differ, a second unfaulted run (a2) says whether the card or
+   the retry is the cause, and the phase fails only for the retry.
+   (c) ``ema_update`` fails at
+   the 4th attempt, after the commit: the snapshot of epoch 0 is restored,
+   the attempts start at steps 0, 1, 2, 3, 2, 3, 4 (as ``css_tpu``
+   rewinds), the losses stay finite and the run ends at step 5.  (d) The
+   hook fails from the 4th attempt on: the third failure must propagate as
+   an OutOfMemoryError with the first one in its context.  (e)
+   ``Training_Setting.host_recovery: 0`` and (c)'s fault: a RuntimeError
+   naming the key, caused by the fault.  (f) The first eval fails: the log
+   reads mIoU -1, no ``best_model`` is saved at that epoch, the snapshot is
+   refreshed, and the run ends at step 4.  Each run's launches per kernel
+   must be 21 per attempt that reached the contrastive loss.  It prints the
+   snapshot's GiB and seconds per refresh, the retry's and the restore's
+   wall times and the peaks of (a) and (b).  (g) ``distributed_init``
+   through ``COORDINATOR_ADDRESS=127.0.0.1:<free port>`` with one process
+   joins a 1-rank NCCL group and all-reduces a tensor.
 
 The output ends with one JSON line of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -1862,6 +1891,336 @@ def os16_phase(torch, ck, smi: str, steps: int):
     return launches
 
 
+def _alloc_too_much(torch):
+    """A real allocator failure: more than the card's whole memory."""
+    total = torch.cuda.mem_get_info()[1]
+    torch.empty(total + 2**30, dtype=torch.uint8, device="cuda")
+
+
+class _RecoveryProbe:
+    """Wraps the driver's step, eval, checkpoint and recovery functions for
+    one run: records the step each attempt starts from, each successful
+    attempt's losses, the state, the saves (not written) and the recovery's
+    timings; injects allocator failures from inside the attempts numbered
+    (from 1) in ``before`` (a forward hook on the student's trunk) and
+    ``after`` (in ``ema_update``, after the commit), and into the first eval
+    with ``eval_fault``; with ``digest_at``, takes the state's SHA-256 when
+    that attempt and the next start."""
+
+    def __init__(self, torch, before=(), after=(), eval_fault=False, digest_at=None):
+        from css_tpu_torch.cli import train_main
+        from css_tpu_torch.train import train_step
+
+        self.torch, self.tm, self.ts = torch, train_main, train_step
+        self.before, self.after, self.eval_fault = set(before), set(after), eval_fault
+        self.digest_at = digest_at
+        self.starts, self.losses, self.saves, self.digests, self.faults = [], [], [], [], []
+        self.refreshes, self.restores, self.recoveries = [], [], []
+        self.state = None
+        self.orig = dict(make_train_step=train_main.make_train_step,
+                         make_eval_step=train_main.make_eval_step,
+                         save_checkpoint=train_main.save_checkpoint,
+                         _recover_and_rerun=train_main._recover_and_rerun,
+                         refresh=train_main._HostRecovery.refresh,
+                         restore=train_main._HostRecovery.restore,
+                         ema_update=train_step.ema_update)
+
+    def __enter__(self):
+        tm, probe, torch = self.tm, self, self.torch
+        from css_tpu_torch.train.checkpoint import state_sha256
+
+        def make_train_step(cfg):
+            step = probe.orig["make_train_step"](cfg)
+
+            def probed(state, *args):
+                probe.starts.append(state.step)
+                probe.state = state
+                n = len(probe.starts)
+                if probe.digest_at is not None and n in (probe.digest_at, probe.digest_at + 1):
+                    probe.digests.append(state_sha256(state))
+                hook = (state.model.backbone.register_forward_hook(probe._fail)
+                        if n in probe.before else None)
+                try:
+                    state, metrics = step(state, *args)
+                finally:
+                    if hook is not None:
+                        hook.remove()
+                probe.losses.append({k: v.item() for k, v in metrics.items()})
+                return state, metrics
+            return probed
+
+        def make_eval_step(model, num_classes, **kw):
+            eval_step = probe.orig["make_eval_step"](model, num_classes, **kw)
+
+            def probed(*args):
+                if probe.eval_fault:
+                    probe.eval_fault = False
+                    probe._fail()
+                return eval_step(*args)
+            return probed
+
+        def ema_update(*args, **kw):
+            if len(probe.starts) in probe.after:
+                probe._fail()
+            return probe.orig["ema_update"](*args, **kw)
+
+        def save_checkpoint(path, state, epoch, miou):
+            probe.saves.append((os.path.basename(path), epoch, miou))
+
+        def recover(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return probe.orig["_recover_and_rerun"](*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                probe.recoveries.append(time.perf_counter() - t0)
+
+        def refresh(recovery, state, epoch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probe.orig["refresh"](recovery, state, epoch)
+            probe.refreshes.append((epoch, time.perf_counter() - t0, recovery.nbytes()))
+
+        def restore(recovery, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = probe.orig["restore"](recovery, state)
+            torch.cuda.synchronize()
+            probe.restores.append(time.perf_counter() - t0)
+            return ok
+
+        tm.make_train_step, tm.make_eval_step = make_train_step, make_eval_step
+        tm.save_checkpoint, tm._recover_and_rerun = save_checkpoint, recover
+        tm._HostRecovery.refresh, tm._HostRecovery.restore = refresh, restore
+        self.ts.ema_update = ema_update
+        return self
+
+    def __exit__(self, *exc):
+        o, tm = self.orig, self.tm
+        tm.make_train_step, tm.make_eval_step = o["make_train_step"], o["make_eval_step"]
+        tm.save_checkpoint, tm._recover_and_rerun = o["save_checkpoint"], o["_recover_and_rerun"]
+        tm._HostRecovery.refresh, tm._HostRecovery.restore = o["refresh"], o["restore"]
+        self.ts.ema_update = o["ema_update"]
+
+    def _fail(self, *hook_args):
+        try:
+            _alloc_too_much(self.torch)
+        except self.torch.cuda.OutOfMemoryError as e:
+            self.faults.append(e)
+            raise
+
+
+def _host_state(state) -> list:
+    """What ``state_sha256`` hashes, on the host: the student's and the
+    teacher's tensors, the momentum buffers and the prototypes."""
+    momentum = [state.optimizer.state.get(p, {}).get("momentum_buffer")
+                for p in state.model.parameters()]
+    tensors = (list(state.model.state_dict().values())
+               + list(state.teacher.state_dict().values())
+               + [m for m in momentum if m is not None] + [state.prototypes])
+    return [t.detach().float().cpu() for t in tensors]
+
+
+def _max_diff(a: list, b: list) -> str:
+    """The largest absolute difference of two host states, with the largest
+    magnitude of that tensor in ``b``, and the largest of the differences
+    relative to their tensors' largest magnitudes."""
+    diffs = [(float((x - y).abs().max()), float(y.abs().max())) for x, y in zip(a, b)]
+    d, scale = max(diffs)
+    rel = max(d_ / s_ for d_, s_ in diffs if s_ > 0)
+    return f"{d:.6g} (in a tensor of largest magnitude {scale:.6g}), relative {rel:.6g}"
+
+
+def recovery_phase(torch, ck, smi: str):
+    """The driver's fault recovery on the card, and ``distributed_init``;
+    see the module docstring.  Returns each run's launches."""
+    from css_tpu_torch.cli import entries, train_main
+    from css_tpu_torch.train.checkpoint import state_sha256
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    launches = {}
+
+    def run(label, probe, overrides=None, total_iter=6, expect=None):
+        _free(torch)
+        config = _voc_yaml(workdir, f"{label}.yaml", **(overrides or {}))
+        argv = ["--config", config, "--synthetic", "--job_name", label, "--num_labels", "16",
+                "--total_iter", str(total_iter)]
+        args = entries.ori_pseudo_parser().parse_args(argv)
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        with probe:
+            if expect is None:
+                result = train_main.run_training("ori", args)
+            else:
+                try:
+                    train_main.run_training("ori", args)
+                except expect as e:
+                    result = e
+                else:
+                    raise RuntimeError(f"recovery {label}: the run did not raise {expect}")
+        seconds = time.perf_counter() - t0
+        launches[label] = dict(ck.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _check_finite(probe.losses, f"recovery {label}")
+        print(f"recovery {label}: {seconds:.3f} s wall, attempts start at steps {probe.starts}, "
+              f"{len(probe.faults)} faults, launches {json.dumps(launches[label])}, peak "
+              f"{peak:.3f} GiB, saves {probe.saves}", flush=True)
+        return result, peak
+
+    def want_launches(label, full_attempts):
+        if any(n != 21 * full_attempts for n in launches[label].values()):
+            raise RuntimeError(f"recovery {label}: launches {launches[label]}, want "
+                               f"{21 * full_attempts} each")
+
+    try:
+        # (a), (b) and (a2) under deterministic algorithms: by default the card's
+        # runs differ in the last bits (cuDNN's benchmark picks, atomics), and
+        # the comparison is of the recovery, not of them
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            probe_a = _RecoveryProbe(torch)
+            result_a, peak_a = run("a", probe_a)
+            if result_a["steps"] != 6 or probe_a.starts != list(range(6)):
+                raise RuntimeError(f"recovery a: {result_a}, attempts {probe_a.starts}")
+            want_launches("a", 6)
+            state_a = _host_state(probe_a.state)
+            digest_a = state_sha256(probe_a.state)
+            refreshes = probe_a.refreshes
+            del probe_a
+
+            probe_b = _RecoveryProbe(torch, before={4}, digest_at=4)
+            result_b, peak_b = run("b", probe_b)
+            if result_b["steps"] != 6 or probe_b.starts != [0, 1, 2, 3, 3, 4, 5]:
+                raise RuntimeError(f"recovery b: {result_b}, attempts {probe_b.starts}")
+            if len(probe_b.digests) != 2 or probe_b.digests[0] != probe_b.digests[1]:
+                raise RuntimeError(f"recovery b: the retry was given another state than the "
+                                   f"failed attempt: {probe_b.digests}")
+            want_launches("b", 6)
+            digest_b = state_sha256(probe_b.state)
+            retry_s = probe_b.recoveries
+            state_b = None if digest_b == digest_a else _host_state(probe_b.state)
+            del probe_b
+            if state_b is None:
+                print(f"recovery b: final state bit-equal to a's (SHA-256 {digest_b})",
+                      flush=True)
+            else:
+                probe_a2 = _RecoveryProbe(torch)
+                run("a2", probe_a2)
+                a2_equal = state_sha256(probe_a2.state) == digest_a
+                print(f"recovery b: final state NOT bit-equal to a's: largest difference "
+                      f"{_max_diff(state_b, state_a)}; a second unfaulted run (a2) differs from "
+                      f"a by {_max_diff(_host_state(probe_a2.state), state_a)} (bit-equal: "
+                      f"{a2_equal})", flush=True)
+                del probe_a2
+                if a2_equal:
+                    raise RuntimeError("recovery b: two unfaulted runs are bit-equal, the "
+                                       "retried one is not")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        if peak_b > peak_a + 1.0:
+            raise RuntimeError(f"recovery b: peak {peak_b:.3f} GiB after the OOM and the retry, "
+                               f"a's {peak_a:.3f} GiB: the failed attempt's memory was kept")
+
+        probe_c = _RecoveryProbe(torch, after={4})
+        result_c, _ = run("c", probe_c)
+        if result_c["steps"] != 5 or probe_c.starts != [0, 1, 2, 3, 2, 3, 4]:
+            raise RuntimeError(f"recovery c: {result_c}, attempts {probe_c.starts}")
+        want_launches("c", 7)
+        restore_s, restore_rerun_s = probe_c.restores, probe_c.recoveries
+        del probe_c
+
+        probe_d = _RecoveryProbe(torch, before=range(4, 100))
+        err, _ = run("d", probe_d, expect=torch.cuda.OutOfMemoryError)
+        chain, e = [], err
+        while e is not None:
+            chain.append(e)
+            e = e.__context__
+        if probe_d.starts != [0, 1, 2, 3, 3, 2] or err is not probe_d.faults[-1] \
+                or probe_d.faults[0] not in chain:
+            raise RuntimeError(f"recovery d: attempts {probe_d.starts}; {len(chain)} errors in "
+                               f"the chain, the first fault among them: "
+                               f"{probe_d.faults[0] in chain}")
+        want_launches("d", 3)
+        print(f"recovery d: propagated {type(err).__name__}: {str(err).splitlines()[0]}",
+              flush=True)
+        del err, chain, e, probe_d
+
+        probe_e = _RecoveryProbe(torch, after={4})
+        err, _ = run("e", probe_e, overrides={"Training_Setting.host_recovery": 0},
+                        expect=RuntimeError)
+        if ("Training_Setting.host_recovery" not in str(err)
+                or not isinstance(err.__cause__, torch.cuda.OutOfMemoryError)
+                or probe_e.starts != [0, 1, 2, 3]):
+            raise RuntimeError(f"recovery e: {err!r}, attempts {probe_e.starts}")
+        want_launches("e", 4)
+        print(f"recovery e: raised {str(err)[:160]}", flush=True)
+        del err, probe_e
+
+        probe_f = _RecoveryProbe(torch, eval_fault=True)
+        result_f, _ = run("f", probe_f, total_iter=4)
+        log = open(os.path.join(workdir, "checkpoints", "f", "train.log")).read()
+        saves = [s[:2] for s in probe_f.saves]
+        if (result_f["steps"] != 4 or "WARNING eval failed (OutOfMemoryError" not in log
+                or "Epoch:0 * mIoU -1.0000" not in log or ("best_model", 1) in saves
+                or ("last_model", 1) not in saves
+                or [r[0] for r in probe_f.refreshes] != [0, 0, 1]):
+            raise RuntimeError(f"recovery f: {result_f}, saves {saves}, refreshes "
+                               f"{probe_f.refreshes}")
+        want_launches("f", 4)
+        del probe_f
+
+        print(f"recovery ({smi}): refreshes of a (epoch, s, GiB) "
+              f"{[(e, round(t, 4), round(n / 2**30, 4)) for e, t, n in refreshes]} (the first, "
+              f"before any momentum, allocates the pinned buffers); "
+              f"retry (b) {[round(t, 4) for t in retry_s]} s wall (the rerun step included); "
+              f"restore (c) {[round(t, 4) for t in restore_s]} s, restore + rerun "
+              f"{[round(t, 4) for t in restore_rerun_s]} s; peak a {peak_a:.3f} GiB, b (after "
+              f"the OOM and the retry) {peak_b:.3f} GiB", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    _free(torch)
+    _rendezvous_check(torch)
+    return launches
+
+
+def _rendezvous_check(torch):
+    """(g) of the recovery phase: ``distributed_init`` through
+    ``COORDINATOR_ADDRESS`` with one process: a 1-rank NCCL group and one
+    all-reduce."""
+    import socket
+
+    from css_tpu_torch import parallel
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    saved = os.environ.get("COORDINATOR_ADDRESS")
+    os.environ["COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        device = parallel.distributed_init(num_processes=1, process_id=0)
+        try:
+            t = torch.full((4,), 2.5, device=device)
+            torch.distributed.all_reduce(t)
+            backend = torch.distributed.get_backend()
+            ok = bool((t == 2.5).all()) and backend == "nccl" and parallel.world_size() == 1
+        finally:
+            torch.distributed.destroy_process_group()
+        seconds = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del os.environ["COORDINATOR_ADDRESS"]
+        else:
+            os.environ["COORDINATOR_ADDRESS"] = saved
+    if not ok or device != torch.device("cuda:0"):
+        raise RuntimeError(f"recovery g: distributed_init gave {device}, backend {backend}, "
+                           f"all-reduce {t.tolist()}")
+    print(f"recovery g: distributed_init through COORDINATOR_ADDRESS joined a 1-rank {backend} "
+          f"group on {device} and all-reduced, {seconds:.3f} s", flush=True)
+
+
 _CATEGORIES = (   # first match wins, on the lower-cased kernel name
     ("collectives (NCCL)", ("nccl",)),
     ("contrastive K1/K2 + compaction",
@@ -1993,6 +2352,8 @@ def main() -> int:
         shutil.rmtree(keep, ignore_errors=True)
     os16_launches = os16_phase(torch, ck, smi, args.steps)
     phase_done("os16")
+    recovery_launches = recovery_phase(torch, ck, smi)
+    phase_done("recovery")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on", flush=True)
 
     source = "css_tpu_torch/csrc/" + ck.SOURCE
@@ -2010,7 +2371,9 @@ def main() -> int:
         dense = dict(dense_rows[key], launches=dense_launches[name])
         # the new paths' steps: the imported checkpoint resumed, the real files, OS16
         paths = dict(imported_resume_launches=import_launches[name],
-                     files_launches=files_launches[name], os16_launches=os16_launches[name])
+                     files_launches=files_launches[name], os16_launches=os16_launches[name],
+                     # the recovery runs: 21 per attempt that reached the loss
+                     recovery_launches={run: n[name] for run, n in recovery_launches.items()})
         rows.append(dict(name=name, route="cuda", source=source, replaces=f"{tpu}:{line_no}",
                          launches=launches[name], **kernels[key], cityscapes=city,
                          distributed=dist, expected_pallas=dense, **paths))

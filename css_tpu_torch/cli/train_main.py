@@ -53,6 +53,20 @@ steps (default 10), so all ranks leave at the same step.  A run over more
 than one rank ends by checking that every rank holds the same state (a
 SHA-256 of it per rank, in the result).
 
+Fault recovery, as the JAX driver's: the runtime's faults (the allocator's
+``OutOfMemoryError``, a CUDA error, a cuDNN or cuBLAS status; never any
+other exception) are caught around the step and the eval, and each catch is
+logged.  A step that failed before its commit left the state as it was
+given (``train/train_step.py``) and runs again in place; if that fails too,
+or the fault struck at or after the commit, a host snapshot of the state is
+copied back and the batch runs again from it; a third failure propagates.
+The snapshot is taken before the first step and refreshed at eval points
+every ``Training_Setting.host_recovery`` epochs (default 1; 0: none).  An
+eval that faults is skipped: mIoU -1, the best mIoU and ``best_model`` left
+alone.  Over more than one rank a fault propagates and ends every rank (a
+rank that ran its step again would reissue collectives its peers already
+matched); the run continues with ``--resume`` from ``last_model``.
+
 The recipe's network and loss settings come from the YAML as the JAX
 driver reads them: ``Network.backbone`` (``resnet101``, ``resnet101_stem``,
 ``tiny``, ``tiny_stem``), ``Network.remat`` (a bool or a list of stage
@@ -330,6 +344,165 @@ def _evaluate(eval_step, test_loader, crop, num_classes: int, seed: int, eval_in
     return cm
 
 
+_FAULT_TYPES = tuple(t for t in (torch.cuda.OutOfMemoryError,
+                                 getattr(torch, "AcceleratorError", None)) if t is not None)
+# cuBLAS's status errors read "CUDA error: CUBLAS_STATUS_..."
+_FAULT_PREFIXES = ("CUDA error", "CUDA driver error", "cuDNN")
+
+
+def _runtime_fault(err: BaseException) -> bool:
+    """True for the runtime's faults, the counterpart of JAX's
+    ``JaxRuntimeError``: the allocator's ``OutOfMemoryError``, a CUDA error
+    (``torch.AcceleratorError``; a ``RuntimeError`` reading "CUDA error" on
+    older torch), and the cuDNN and cuBLAS status errors."""
+    return isinstance(err, _FAULT_TYPES) or (isinstance(err, RuntimeError)
+                                             and str(err).startswith(_FAULT_PREFIXES))
+
+
+def _drop_traceback(err: BaseException) -> None:
+    """Drops ``err``'s traceback (its message and class stay): its frames
+    hold the failed attempt's activations and autograd graph, which must be
+    freed before the next attempt (clearing the frames' locals is not
+    enough: ``nn.Module``'s call keeps its output in closure cells)."""
+    err.__traceback__ = None
+
+
+def _ranks_fault(err: BaseException, what: str, rank: int, world: int, save_dir: str):
+    return RuntimeError(
+        f"{what} failed on rank {rank} of {world} ({type(err).__name__}: {err}); a fault is not "
+        f"recovered over more than one rank (a rank that ran again would reissue collectives "
+        f"its peers already matched): restart with --resume "
+        f"{os.path.join(save_dir, 'last_model')}")
+
+
+class _HostRecovery:
+    """Host copy of the train state, refreshed at eval points.
+
+    A step that failed at or after its commit leaves a half-updated state
+    that cannot run again in place; with a host snapshot such a fault costs
+    at most one eval interval of progress instead of the run.  The snapshot
+    holds what ``state_sha256`` hashes: the step, the student's and the
+    teacher's tensors, the momentum buffers and the prototypes (about 0.67
+    GiB for ResNet-101), in host buffers (pinned for a state on the card)
+    allocated once.  ``every`` (``Training_Setting.host_recovery``): epochs
+    between refreshes at eval points; 0 disables the snapshot.
+    """
+
+    def __init__(self, every: int = 1):
+        self.every = every
+        self.step = self.epoch = None
+        self.tensors = self.momenta = None
+        self.has_momentum = []
+
+    @staticmethod
+    def _live(state):
+        """(the tensors every state holds, the parameters, their momentum
+        buffers or None)."""
+        params = list(state.model.parameters())
+        momenta = [state.optimizer.state.get(p, {}).get("momentum_buffer") for p in params]
+        tensors = (list(state.model.state_dict().values())
+                   + list(state.teacher.state_dict().values()) + [state.prototypes])
+        return tensors, params, momenta
+
+    @staticmethod
+    def _host_like(t: torch.Tensor) -> torch.Tensor:
+        return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device="cpu",
+                                   pin_memory=t.is_cuda)
+
+    def refresh(self, state, epoch: int) -> None:
+        if not (self.every and (epoch % self.every == 0 or self.step is None)):
+            return
+        tensors, _, momenta = self._live(state)
+        if self.tensors is None:
+            self.tensors = [self._host_like(t) for t in tensors]
+            self.momenta = [None] * len(momenta)
+        for host, t in zip(self.tensors, tensors):
+            host.copy_(t, non_blocking=True)
+        for i, m in enumerate(momenta):
+            if m is not None:
+                if self.momenta[i] is None:
+                    self.momenta[i] = self._host_like(m)
+                self.momenta[i].copy_(m, non_blocking=True)
+        self.has_momentum = [m is not None for m in momenta]
+        if tensors[0].is_cuda:
+            torch.cuda.synchronize(tensors[0].device)
+        self.step, self.epoch = state.step, epoch
+
+    def nbytes(self) -> int:
+        """The snapshot's size in bytes (0 before the first)."""
+        if self.step is None:
+            return 0
+        return sum(t.nbytes for t in self.tensors) + sum(
+            m.nbytes for m, has in zip(self.momenta, self.has_momentum) if has)
+
+    def restore(self, state) -> bool:
+        """Copies the snapshot back into ``state`` in place (the optimizer's
+        parameters, their layout and the teacher stay the same objects);
+        False when there is none."""
+        if self.step is None:
+            return False
+        tensors, params, momenta = self._live(state)
+        with torch.no_grad():
+            for t, host in zip(tensors, self.tensors):
+                t.copy_(host, non_blocking=True)
+            for p, m, host, has in zip(params, momenta, self.momenta, self.has_momentum):
+                if not has:        # the snapshot predates this parameter's first update
+                    state.optimizer.state[p].pop("momentum_buffer", None)
+                elif m is None:
+                    state.optimizer.state[p]["momentum_buffer"] = host.to(p.device, copy=True)
+                else:
+                    m.copy_(host, non_blocking=True)
+        state.step, state.consumed = self.step, False
+        return True
+
+
+def _recover_and_rerun(run, state, recovery: _HostRecovery, log, err):
+    """Fault path of one train step: ``run(state)`` raised ``err``, a runtime
+    fault.  A step that failed before its commit gave the state back as it
+    was given, so it runs again in place (with the same draws: they are a
+    function of the step).  If that fails too, or the state was consumed (the
+    fault struck at or after the commit), the host snapshot is copied back
+    and THIS batch runs again from it, with the draws of the snapshot's step;
+    a third failure propagates."""
+    _drop_traceback(err)
+    retry_error = None
+    if state.consumed:
+        log.info(f"WARNING train step failed ({err}) at or after its update, which consumed "
+                 "its state; not retrying in place")
+    else:
+        log.info(f"WARNING train step failed ({err}); retrying once")
+        try:
+            return run(state)
+        except RuntimeError as e2:
+            if not _runtime_fault(e2):
+                raise
+            _drop_traceback(e2)
+            retry_error = e2
+    try:
+        restored = recovery.restore(state)
+    except RuntimeError as e3:
+        if not _runtime_fault(e3):
+            raise
+        # a sticky fault (an illegal address, a device-side assert) refuses
+        # every later copy: the original fault comes out, not this one
+        raise RuntimeError(
+            f"train step failed ({err}), and copying the recovery snapshot back failed too "
+            f"({e3}): the device is in an error state; restart the run with --resume from "
+            "last_model") from err
+    if not restored:
+        if state.consumed:
+            # the original fault, not the step's refusal of a consumed state
+            raise RuntimeError(
+                "train step failed at or after its update, so its state was consumed; no "
+                "recovery snapshot available (Training_Setting.host_recovery=0?) — original "
+                f"error: {err}") from err
+        raise retry_error
+    failed = "train step failed" if retry_error is None else f"retry failed ({retry_error})"
+    log.info(f"WARNING {failed}; restored host recovery snapshot from epoch {recovery.epoch} "
+             "and continuing the epoch")
+    return run(state)
+
+
 def _contrast_weight(cfg, args, strategy: str, epoch: int) -> float:
     """1 for ``ori``; the ``Ramp_Scheduler`` ramp-down at ``epoch`` for
     ``mix`` and ``cross`` when ``--sche`` is on, else 1."""
@@ -434,6 +607,10 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
         rep_pixels = 2 * batch_size * h * w
         timer = StepTimer()
         u_iter = InfiniteLoader(train_u, start_epoch)
+        # over more than one rank a fault propagates: no snapshot to keep
+        recovery = _HostRecovery(0 if distributed
+                                 else cfg.get("Training_Setting.host_recovery", 1))
+        recovery.refresh(state, start_epoch)     # covers faults before the first eval
         guard.install()
         done = preempted = False
         for epoch in range(start_epoch, total_epoch):
@@ -443,9 +620,19 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
             with maybe_profile(args.profile_dir, epoch == start_epoch):
                 batches = _device_prefetch(_epoch_batches(train_l, u_iter), device)
                 for si, batch in enumerate(batches):
-                    draws = sample_step_draws(_generator(device, seed + 1, state.step, rank),
-                                              step_cfg, batch_size, batch_size, rep_pixels)
-                    state, metrics = train_step(state, batch, draws, weight, use_rep)
+                    def run(s, batch=batch, weight=weight, use_rep=use_rep):
+                        draws = sample_step_draws(_generator(device, seed + 1, s.step, rank),
+                                                  step_cfg, batch_size, batch_size, rep_pixels)
+                        return train_step(s, batch, draws, weight, use_rep)
+
+                    try:
+                        state, metrics = run(state)
+                    except RuntimeError as e:
+                        if not _runtime_fault(e):
+                            raise
+                        if distributed:
+                            raise _ranks_fault(e, "train step", rank, world, save_dir) from e
+                        state, metrics = _recover_and_rerun(run, state, recovery, log, e)
                     timer.tick()
                     if args.max_steps and state.step >= args.max_steps:
                         done = True
@@ -467,8 +654,19 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
                     or epoch == total_epoch - 1):
                 log.info(f"Epoch:{epoch} * Time {time.asctime()} {timer.summary()}")
                 continue
-            miou = _evaluate(eval_step, test_loader, step_cfg.crop_hw, step_cfg.num_classes,
-                             seed, epoch, device).miou
+            try:
+                miou = _evaluate(eval_step, test_loader, step_cfg.crop_hw, step_cfg.num_classes,
+                                 seed, epoch, device).miou
+            except RuntimeError as e:
+                if not _runtime_fault(e):
+                    raise
+                if distributed:
+                    raise _ranks_fault(e, "eval", rank, world, save_dir) from e
+                # a transient fault must not end a long run: skip this eval
+                _drop_traceback(e)
+                log.info(f"WARNING eval failed ({type(e).__name__}: {e}); "
+                         "skipping this evaluation")
+                miou = -1.0
             best_miou = max(best_miou, miou)
             m = {k: float(v) for k, v in metrics.items()}
             tb.scalars(state.step, {"eval/miou": miou, "loss/total": m["total"],
@@ -486,6 +684,7 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
                 if epoch % 10 == 0 or done or epoch == total_epoch - 1:
                     save_checkpoint(os.path.join(save_dir, "last_model"), state, epoch + 1,
                                     best_miou)
+            recovery.refresh(state, epoch)
             if done:
                 break
     finally:

@@ -13,8 +13,12 @@ collectives the step issues are the functions below, on the default group.
   rank r joins the group on ``devices[r]`` and runs ``fn(device, *args)``;
   the caller gets every rank's return value.
 * :func:`init_from_env` joins a group that ``torchrun`` set up (its
-  ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and ``MASTER_ADDR`` variables),
-  the counterpart of ``distributed_init``.
+  ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and ``MASTER_ADDR`` variables).
+* :func:`distributed_init`, the counterpart of ``css_tpu``'s, joins a group
+  from an explicit coordinator, from ``COORDINATOR_ADDRESS`` or from a SLURM
+  ``srun`` job step (:func:`expand_hostlist` reads its node list); outside
+  those it does nothing.  The training entry point does not call it: it is
+  the library's entry for launchers.
 * :func:`all_reduce_sum` is a differentiable sum over ranks: its backward
   sums the cotangents over ranks, the transpose of JAX's ``psum`` (under
   ``check_vma=False``).  After :func:`mean_gradients` this gives the exact
@@ -27,8 +31,10 @@ branches on the rank around a collective.
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 import pickle
+import re
 import shutil
 import tempfile
 from typing import Callable, List, Optional, Sequence
@@ -37,8 +43,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["backend_for", "launched_by_torchrun", "is_initialized", "rank",
-           "world_size", "rank_devices", "init_from_env", "spawn", "all_reduce_sum",
-           "mean_gradients", "broadcast_", "any_process"]
+           "world_size", "rank_devices", "init_from_env", "distributed_init", "expand_hostlist",
+           "spawn", "all_reduce_sum", "mean_gradients", "broadcast_", "any_process"]
 
 _TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR")
 DEFAULT_TIMEOUT_S = 1800.0      # a collective that waits longer raises in its rank
@@ -99,6 +105,81 @@ def init_from_env(device_type: str = "cuda") -> torch.device:
     device = torch.device(f"cuda:{local}" if device_type == "cuda" else "cpu")
     _join(backend_for(device), device, int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
           "env://", DEFAULT_TIMEOUT_S)
+    return device
+
+
+def expand_hostlist(hostlist: str) -> List[str]:
+    """The host names of a SLURM hostlist, in order: ``a,b``, ``node[0-7]``,
+    ``node[01-03,7]`` (a range keeps its zero padding), several bracket
+    groups in one name (each expanded, the last fastest)."""
+    hosts = []
+    for name in re.findall(r"(?:[^,\[]|\[[^\]]*\])+", hostlist):
+        parts = re.split(r"\[([^\]]*)\]", name)     # text, group, text, group, ..., text
+        choices = []
+        for i, part in enumerate(parts):
+            if i % 2 == 0:
+                choices.append([part])
+                continue
+            values = []
+            for item in part.split(","):
+                lo, _, hi = item.partition("-")
+                if not hi:
+                    values.append(lo)
+                    continue
+                if not (lo.isdigit() and hi.isdigit()) or int(hi) < int(lo):
+                    raise ValueError(f"hostlist {hostlist!r}: bad range {item!r}")
+                values += [str(v).zfill(len(lo)) for v in range(int(lo), int(hi) + 1)]
+            choices.append(values)
+        hosts += ["".join(c) for c in itertools.product(*choices)]
+    return hosts
+
+
+def distributed_init(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None, debug_nans: bool = False,
+                     device_type: str = "cuda") -> torch.device:
+    """Joins the default process group of a run over several processes, one
+    per device, and returns this rank's device (``cuda:<local index>`` over
+    NCCL, or the CPU over gloo); the counterpart of ``css_tpu``'s
+    ``distributed_init``.
+
+    The group's address, in this order: ``coordinator`` (``host:port``),
+    ``COORDINATOR_ADDRESS``, or the first host of an ``srun`` job step's
+    ``SLURM_STEP_NODELIST`` with the port JAX's SLURM detector picks
+    (``SLURM_JOB_ID`` mod 4096 + 61440).  ``num_processes`` and
+    ``process_id`` default to ``SLURM_NTASKS`` and ``SLURM_PROCID``; the
+    local device index is ``SLURM_LOCALID``, else ``process_id`` modulo the
+    host's cards.  An ``srun`` step is ``SLURM_NTASKS`` > 1 with
+    ``SLURM_STEP_NODELIST`` set: a process inside a multi-task allocation
+    but not started by ``srun`` waits for no peers.  Without any of the
+    three sources the call joins nothing and returns ``device_type``'s
+    device.
+
+    ``debug_nans`` turns on ``torch.autograd.set_detect_anomaly(True,
+    check_nan=True)``: a NaN produced in backward raises, naming the forward
+    operation that made its input.  Unlike ``jax_debug_nans`` it does not
+    check every forward operation's output, only the backward's.
+    """
+    if debug_nans:
+        torch.autograd.set_detect_anomaly(True, check_nan=True)
+    env = os.environ
+    address = coordinator or env.get("COORDINATOR_ADDRESS")
+    if not address:
+        if int(env.get("SLURM_NTASKS", "1")) <= 1 or "SLURM_STEP_NODELIST" not in env:
+            return torch.device(device_type)
+        port = int(env["SLURM_JOB_ID"]) % 2**12 + (65535 - 2**12 + 1)
+        address = f"{expand_hostlist(env['SLURM_STEP_NODELIST'])[0]}:{port}"
+    if (num_processes is None and "SLURM_NTASKS" not in env
+            or process_id is None and "SLURM_PROCID" not in env):
+        raise ValueError(f"distributed_init: joining {address} needs num_processes and "
+                         f"process_id (or SLURM_NTASKS and SLURM_PROCID)")
+    world = num_processes if num_processes is not None else int(env["SLURM_NTASKS"])
+    rank_ = process_id if process_id is not None else int(env["SLURM_PROCID"])
+    if device_type == "cuda":
+        local = int(env.get("SLURM_LOCALID", rank_ % max(torch.cuda.device_count(), 1)))
+        device = torch.device(f"cuda:{local}")
+    else:
+        device = torch.device("cpu")
+    _join(backend_for(device), device, rank_, world, f"tcp://{address}", DEFAULT_TIMEOUT_S)
     return device
 
 

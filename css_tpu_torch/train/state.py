@@ -9,7 +9,11 @@ optimizer — and the train step updates them in place.
 * the teacher starts as a copy of the student; its EMA covers parameters
   only, and its BatchNorm running stats move only through its own
   train-mode forward;
-* prototypes start as zeros [C, D].
+* prototypes start as zeros [C, D];
+* ``consumed`` is set when a train step failed at or after its commit (the
+  SGD update) and the state is half-updated: the step refuses it until the
+  driver copies a host snapshot back (``cli/train_main.py``), as a JAX step
+  refuses donated buffers that are already deleted.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ class TrainState:
     optimizer: torch.optim.SGD
     lr_schedule: Callable[[int], float]
     prototypes: torch.Tensor        # [C, D] f32
+    consumed: bool = False          # a step failed at or after its commit
 
 
 def create_train_state(model: DeepLabV3PlusDual, num_classes: int, output_dim: int = 256, *,

@@ -40,6 +40,15 @@ model outputs and losses are f32.  Every random draw arrives in ``draws``
 (``train/draws.py``).  The step updates ``state`` in place and returns it
 with the step's losses.
 
+A failed step can be retried.  Before its commit (``optimizer.step()``) the
+step changes the state only in the BatchNorm running stats of the student
+and the teacher; it copies those buffers on the device when it starts, and
+a fault before the commit puts them back, so the state is again exactly what
+the step was given (the counterpart of JAX's pure step).  A fault at or
+after the commit leaves the state half-updated: the step marks it
+``consumed`` and refuses it from then on, as a JAX step refuses donated
+buffers that are already deleted.
+
 ``distributed`` (the JAX step's ``axis_name``): the step runs on every rank
 of the default process group, each on its shard of the batch with its own
 draws, the model built with cross-replica BatchNorm.  Besides the BN
@@ -194,9 +203,26 @@ def make_train_step(cfg: StepConfig):
                                                **draws.u_aug.as_kwargs(), quantize=quantize)
         return to_channel_last(normalize_imagenet(img01)), labels, confs
 
+    rollback = _BufferRollback()
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: StepDraws,
              contrast_weight, use_rep_labels: bool = False
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if state.consumed:
+            raise RuntimeError("train step: the state was consumed by a step that failed at or "
+                               "after its update; copy a snapshot back before stepping it")
+        rollback.save(state)
+        try:
+            return attempt(state, batch, draws, contrast_weight, use_rep_labels)
+        except BaseException:
+            # before the commit: the buffers go back (a device that refuses the
+            # copy, after a sticky fault, leaves the state consumed); the fault
+            # itself propagates
+            if not state.consumed and not rollback.restore():
+                state.consumed = True
+            raise
+
+    def attempt(state, batch, draws, contrast_weight, use_rep_labels):
         model = state.model
         with torch.no_grad():
             l_canvas = _to01_cf(batch["l_image"])
@@ -271,6 +297,7 @@ def make_train_step(cfg: StepConfig):
             mean_gradients(model.parameters())
         for group in state.optimizer.param_groups:
             group["lr"] = state.lr_schedule(state.step)
+        state.consumed = True       # the commit: from here on a fault leaves a half-updated state
         state.optimizer.step()
         ema_update(state.teacher, model, state.step, cfg.ema_alpha)
         state.prototypes = new_protos.detach()
@@ -279,9 +306,35 @@ def make_train_step(cfg: StepConfig):
         if cfg.distributed:
             losses = (all_reduce_sum(torch.stack(losses).detach()) / world_size()).unbind()
         metrics = {k: v.detach() for k, v in zip(("total", "sup", "unsup", "contrast"), losses)}
+        state.consumed = False
         return state, metrics
 
     return step
+
+
+class _BufferRollback:
+    """Device copies of the student's and the teacher's buffers (the
+    BatchNorm running stats), the only part of the state that a step changes
+    before its commit: a few ``_foreach_copy_`` launches each way, into
+    copies allocated once per state."""
+
+    def __init__(self):
+        self.live, self.saved = [], []
+
+    def save(self, state: TrainState) -> None:
+        live = list(state.model.buffers()) + list(state.teacher.buffers())
+        if len(live) != len(self.live) or any(a is not b for a, b in zip(live, self.live)):
+            self.live, self.saved = live, [torch.empty_like(b) for b in live]
+        torch._foreach_copy_(self.saved, self.live)
+
+    def restore(self) -> bool:
+        """Puts the buffers back; False where the device refuses the copy
+        (a sticky CUDA error poisons every later launch)."""
+        try:
+            torch._foreach_copy_(self.live, self.saved)
+        except RuntimeError:
+            return False
+        return True
 
 
 def _round_to_multiple(x: float, mult: int = 8) -> int:

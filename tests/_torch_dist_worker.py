@@ -157,3 +157,51 @@ def all_reduce_grad(device, values):
     x = torch.tensor(values[rank], requires_grad=True)
     (parallel.all_reduce_sum(x) * (rank + 1)).sum().backward()
     return np.asarray(x.grad)
+
+
+def _raise_oom(module, inputs, output):
+    raise torch.cuda.OutOfMemoryError("CUDA out of memory (injected)")
+
+
+def train_with_fault(device, args, fault_rank, out_dir):
+    """``train_main.train_on`` ("ori"), with an OutOfMemoryError raised from
+    the student's first forward on rank ``fault_rank``; a rank that ends
+    with an error writes it to ``out_dir/error<rank>.txt`` and raises it."""
+    rank = dist.get_rank()
+    if rank == fault_rank:
+        make = train_main.make_train_step
+
+        def making(cfg):
+            step = make(cfg)
+
+            def faulty(state, *a):
+                hook = state.model.register_forward_hook(_raise_oom)
+                try:
+                    return step(state, *a)
+                finally:
+                    hook.remove()
+            return faulty
+        train_main.make_train_step = making
+    try:
+        return train_main.train_on(device, "ori", args)
+    except BaseException as e:
+        with open(os.path.join(out_dir, f"error{rank}.txt"), "w") as f:
+            f.write(f"{type(e).__name__}: {e}")
+        raise
+
+
+def rendezvous(index, env, out_dir):
+    """Process ``index`` of a ``torch.multiprocessing.spawn``: joins the
+    group through ``parallel.distributed_init`` on the CPU with ``env[index]``
+    in its environment, all-reduces ``index + 1`` and writes
+    ``out_dir/rank<rank>.txt``: its rank, the world size and the sum."""
+    torch.set_num_threads(THREADS)
+    os.environ.update(env[index])
+    device = parallel.distributed_init(device_type="cpu")
+    try:
+        t = torch.tensor([index + 1.0], device=device)
+        dist.all_reduce(t)
+        with open(os.path.join(out_dir, f"rank{dist.get_rank()}.txt"), "w") as f:
+            f.write(f"{dist.get_rank()} {dist.get_world_size()} {t.item():g}")
+    finally:
+        dist.destroy_process_group()
