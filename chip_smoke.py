@@ -4,11 +4,16 @@
     python3 chip_smoke.py [--steps N] [--profile]
 
 Phases, in order; any failure ends the run with a traceback and a non-zero
-exit code, and no result line:
+exit code, and no result line.  Launch counts: every step runs the
+contrastive loss once, and a loss call launches ``class_live_rows`` (every
+class's compaction) once and K1 and K2 once per class, 21 times a VOC step
+and 19 a Cityscapes step, and the one-vector compaction ``live_rows_compact``
+never; "each kernel launched k times a step" below counts K1 and K2, with
+``class_live_rows`` once a step beside them.
 
 1. header: the card (``nvidia-smi``), torch and CUDA versions, TF32 flags;
 2. build: every CUDA source of the port, one ``nvcc`` each, all at once;
-3. kernels: the live-row compaction, K1 and K2 at the main-path shapes
+3. kernels: the one-vector live-row compaction, K1 and K2 at the main-path shapes
    (Q = 256 anchors, D = 256, N = 262,144 table rows), held against their
    plain PyTorch versions on the same inputs under three weight patterns:
    a dead half, the thinned multiplicities the main path feeds them (on the
@@ -16,17 +21,30 @@ exit code, and no result line:
    table; then timed, with the L2 flushed before each call, beside the
    plain versions, a library yardstick and the least time the card could
    take for the same work; then the same, thinned only, at the Cityscapes
-   table (N = 8 x 193^2 = 297,992 rows, a multiple of neither tile);
+   table (N = 8 x 193^2 = 297,992 rows, a multiple of neither tile); then
+   every class's compaction, ``class_live_rows``, at VOC's C = 21 and
+   Cityscapes' C = 19 classes (80% of the rows members, one class without
+   members), thinned with seeded uniforms and as ``expected_pallas`` feeds
+   it, equal to its plain version in every count, index and weight, and
+   timed beside its plain version, the per-class path it replaced (gather,
+   thinning and ``compact_live_rows_kernel`` per class) and ``torch.nonzero``
+   of the [C, N] weights;
 4. contrastive: the port's contrastive loss and its gradient at a small
    input on the card (through K1/K2) against the same call on the CPU
-   (through the plain versions);
+   (through the plain versions); then one full-size VOC loss (N = 262,144,
+   21 classes) through ``class_live_rows`` and on the per-class path:
+   loss, prototypes and gradient bit-equal;
 5. train: the flagship ``ori`` step -- ResNet-101 OS8 DeepLabV3+ dual head,
    21 classes, 512x512 crops, 8 labeled + 8 unlabeled images, CutMix,
    ``sampled_pallas`` negatives, bf16 compute, random weights from a seed,
    synthetic data -- 2 warm-up steps, then ``--steps`` timed steps with the
    kernel launch counters zeroed just before and read just after: every
    loss must be finite, each kernel must launch once per class per step,
-   and the peak device memory must stay within PEAK_GIB_LIMIT;
+   and the peak device memory must stay within PEAK_GIB_LIMIT; then
+   ``--steps`` steps a block through ``class_live_rows`` and on the
+   per-class path in turns (batched, per-class, per-class, batched, twice), each
+   block's launches checked, and the ratio of their ms/step (the fused
+   Cityscapes step likewise in phase 9);
 6. strategies: ``mix``, then ``cross``, continuing the train phase's state
    (so the prototypes are real) with their entry points' thresholds
    (strong 0.8, weak 0.7, unsupervised 0.97, representation temperature
@@ -43,12 +61,13 @@ exit code, and no result line:
    ``expected`` (the plain product), ``expected_pallas`` (K1/K2 on dense
    weights) and ``sampled`` (gathered negatives), each with finite losses,
    its ms/step beside ``sampled_pallas``'s and its peak memory; the
-   ``_pallas`` modes must launch each kernel 21 times a step, the others
-   none.  The ``expected_pallas`` warm-up step records the contrastive
+   ``_pallas`` modes must launch each kernel 21 times a step (and
+   ``class_live_rows`` once), the others none.  The ``expected_pallas`` warm-up step records the contrastive
    loss's inputs, on which the loss in ``expected_pallas`` must equal the
-   loss in ``expected`` to 2e-3, and its first dense kernel call, whose
-   K1, K2 and compaction are checked against their plain versions and
-   timed as in the kernel phase.  Then one step under the uint8
+   loss in ``expected`` to 2e-3, and its first class's dense weights, on
+   which K1, K2 and the one-vector compaction are checked against their
+   plain versions and timed as in the kernel phase, as is
+   ``class_live_rows`` on the step's own inputs.  Then one step under the uint8
    augmentation law (``aug_quantize``), and ``batch_transform(quantize=
    True)`` with the photometric ops on one labeled batch on the card
    against the same call on the CPU with the same draws: at most one uint8
@@ -60,7 +79,7 @@ exit code, and no result line:
    a temporary directory; it fails unless the losses are finite, the steps
    ran with the ramp-down weights of epochs 0, 0, 1, 1 and switched to the
    representation-space labels at step 3, both evals counted every valid
-   label pixel and each kernel launched 84 times;
+   label pixel and each kernel launched 84 times (4 steps);
 8. driver: with the train phase's state freed, the port's own entry point
    (``css_tpu_torch.cli``, through its argument parser) runs twice on the
    shipped VOC YAML with ``--synthetic``, in a temporary directory removed
@@ -103,7 +122,7 @@ exit code, and no result line:
    card without a host synchronisation against the CPU, and the ``ori``
    entry point on the shipped YAML (``--synthetic --num_labels 8
    --total_iter 2 --max_steps 2``: 2 steps and an eval) with finite losses,
-   every valid label pixel counted and 38 launches per kernel;
+   every valid label pixel counted and 38 launches per kernel (2 steps);
 10. distributed: data parallelism (``css_tpu_torch/parallel``), in three
    parts.  (1) World size 1 over NCCL, in this process, at the VOC width:
    the shipped VOC YAML's ``ori`` step through ``_build_state_and_steps``
@@ -178,8 +197,8 @@ exit code, and no result line:
    ``Training_Setting.host_recovery: 0`` and (c)'s fault: a RuntimeError
    naming the key, caused by the fault.  (f) The first eval fails: the log
    reads mIoU -1, no ``best_model`` is saved at that epoch, the snapshot is
-   refreshed, and the run ends at step 4.  Each run's launches per kernel
-   must be 21 per attempt that reached the contrastive loss.  It prints the
+   refreshed, and the run ends at step 4.  Each run's launches must be
+   one loss's per attempt that reached the contrastive loss.  It prints the
    snapshot's GiB and seconds per refresh, the retry's and the restore's
    wall times and the peaks of (a) and (b).  (g) ``distributed_init``
    through ``COORDINATOR_ADDRESS=127.0.0.1:<free port>`` with one process
@@ -192,6 +211,7 @@ limit, and ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -228,7 +248,59 @@ def _smi() -> str:
 
 
 FLUSH_KERNEL = "bitwise_not"   # the L2 flush's kernel, left out of device times
-FIRST_KERNEL = "count_live"    # the first kernel of every wrapper call that compacts
+FIRST_KERNEL = "class_live_rows"   # the first kernel of the loss's path: every class's
+                                   # compaction, one launch a loss call
+COMPACT_KERNEL = "count_live"  # the first kernel of every wrapper call that compacts one vector
+
+
+def _want_launches(calls: int, c: int) -> dict:
+    """The launches of ``calls`` contrastive-loss calls over ``c`` classes:
+    one compaction of every class each, K1 and K2 once per class, and no
+    compaction of a single weight vector."""
+    return {"class_live_rows": calls, "live_rows_compact": 0,
+            "weighted_exp_softsum_fwd": c * calls, "weighted_exp_softsum_bwd": c * calls}
+
+
+def _check_launches(label: str, launches: dict, calls: int, c: int = 21) -> None:
+    want = _want_launches(calls, c)
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, want {want}")
+
+
+class _PerClassPath:
+    """Puts the contrastive loss back on the per-class path that
+    ``class_live_rows`` replaced: the batched compaction only records its
+    inputs, and each class's K1/K2 call takes the class's weights as the loss
+    built them (``p_over_cnt[c][masked_cls]``; in ``sampled_pallas`` thinned
+    from G times them with ``u[c]``) through ``weighted_exp_softsum_stochastic``
+    or ``weighted_exp_softsum``, which compact one vector at a time (21
+    ``live_rows_compact`` launches a VOC loss)."""
+
+    def __enter__(self):
+        from css_tpu_torch.losses import contrastive
+        from css_tpu_torch.ops.kernels import contrastive_kernels as ck
+
+        self.module = contrastive
+        self.real = contrastive.class_live_rows, contrastive.weighted_exp_softsum_live
+        seen = {}
+
+        def recording(p_over_cnt, masked_cls, g, u=None):
+            seen.update(p=p_over_cnt, cls=masked_cls.long(), g=g, u=u, k=0)
+            rows = [None] * p_over_cnt.shape[0]
+            return rows, rows, rows
+
+        def one_class(a, r, idx, wv, n_live, inv_temp):
+            k = seen["k"]
+            seen["k"] += 1
+            w = seen["p"][k][seen["cls"]]
+            if seen["u"] is None:
+                return ck.weighted_exp_softsum(a, r, w, inv_temp)
+            return ck.weighted_exp_softsum_stochastic(a, r, seen["g"] * w, inv_temp, seen["u"][k])
+        contrastive.class_live_rows, contrastive.weighted_exp_softsum_live = recording, one_class
+        return self
+
+    def __exit__(self, *exc):
+        self.module.class_live_rows, self.module.weighted_exp_softsum_live = self.real
 
 
 def _l2_flush(torch):
@@ -239,7 +311,7 @@ def _l2_flush(torch):
     return buf.bitwise_not_
 
 
-def _timed(torch, fn, iters: int, flush, marker: str = "") -> tuple:
+def _timed(torch, fn, iters: int, flush, marker: str = "", per_call: int = 1) -> tuple:
     """(ms, device_ms) per call of ``fn``, the L2 flushed before each call.
     ms: the median over the calls of CUDA events around each call (the
     median, since a stall of the shared host can hold one call's second
@@ -251,7 +323,8 @@ def _timed(torch, fn, iters: int, flush, marker: str = "") -> tuple:
     it; a window that lost more than two calls' markers is profiled again,
     up to three windows, and where each of them lost more, device_ms is
     None (printed as not measured): the profiler's losses are the card
-    machine's, and ``ms`` is measured all the same."""
+    machine's, and ``ms`` is measured all the same.  ``per_call``: the
+    marker's kernels in one call (the per-class path compacts once a class)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -280,16 +353,16 @@ def _timed(torch, fn, iters: int, flush, marker: str = "") -> tuple:
         kernels = sorted((e for e in p.events() if e.device_type == DeviceType.CUDA),
                          key=lambda e: e.time_range.start)
         starts = [e.time_range.start for e in kernels if marker in e.name]
-        seen.append(len(starts))
-        if len(starts) >= iters - 2:
+        seen.append(len(starts) / per_call)
+        if len(starts) >= (iters - 2) * per_call:
             break
     else:
         print(f"device ms not measured: the profiler saw {seen} {marker} kernels of {iters} "
               f"calls in three windows", flush=True)
         return ms, None
     busy_us = sum(e.time_range.elapsed_us() for e in kernels
-                  if FLUSH_KERNEL not in e.name and e.time_range.start >= starts[1])
-    return ms, busy_us / (len(starts) - 1) / 1e3
+                  if FLUSH_KERNEL not in e.name and e.time_range.start >= starts[per_call])
+    return ms, busy_us / (len(starts) / per_call - 1) / 1e3
 
 
 def _kernel_inputs(torch, ck, g, w_kind: str, n: int):
@@ -325,6 +398,78 @@ def _bounds_ms(a, w, live: int):
     return out
 
 
+def _class_inputs(torch, g, c: int, n: int):
+    """``class_live_rows``' inputs as the loss builds them, at a step's
+    density: 80% of the rows members, of every class but class 1 (no pixels,
+    so no class weighs it), p the softmax over the other member classes of
+    random prototype similarities / 0.5, and the uniforms [C, N]."""
+    dev = "cuda"
+    cls = torch.randint(0, c, (n,), device=dev, generator=g)
+    cls[cls == 1] = 0
+    member = torch.rand(n, device=dev, generator=g) < 0.8
+    masked = torch.where(member, cls, torch.full_like(cls, c))
+    counts = torch.bincount(masked, minlength=c + 1)[:c].float()
+    sim = torch.randn(c, c, device=dev, generator=g) / 0.5
+    allowed = ~torch.eye(c, dtype=torch.bool, device=dev) & (counts > 0)[None, :]
+    p = torch.softmax(torch.where(allowed, sim, torch.full_like(sim, -torch.inf)), dim=-1)
+    p = torch.where(torch.isfinite(p), p, torch.zeros_like(p))
+    p_over_cnt = torch.nn.functional.pad(p / counts.clamp_min(1.0)[None, :], (0, 1))
+    return p_over_cnt, masked.int(), torch.rand(c, n, device=dev, generator=g)
+
+
+def _class_bound_ms(c: int, n: int, thinned: bool, live: int):
+    """Least time for every class's compaction: p_over_cnt, the rows'
+    classes and (thinned) the uniforms read once, an index and a weight per
+    live row and the C counts written; no arithmetic worth counting."""
+    nbytes = c * (c + 1) * 4 + n * 4 + (c * n * 4 if thinned else 0) + live * 8 + c * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _class_rows_row(torch, ck, flush, p_over_cnt, cls, g, u, label: str) -> dict:
+    """``class_live_rows_kernel`` against its plain version (exactly, every
+    class's count, indices and weights), then timed with the L2 flushed
+    before each call beside the plain version, the per-class path it
+    replaced (each class's gather, ``g *``, thinning and
+    ``compact_live_rows_kernel``, from the same int64 classes the loss had)
+    and ``torch.nonzero`` of every class's weights [C, N] at once."""
+    c, n = p_over_cnt.shape[0], cls.shape[0]
+    got = ck.class_live_rows_kernel(p_over_cnt, cls, g, u)
+    torch.cuda.synchronize()
+    want = ck.class_live_rows_plain(p_over_cnt, cls, g, u)
+    counts = want[2].tolist()
+    if not torch.equal(got[2], want[2]) or any(
+            not (torch.equal(got[0][k, :m], want[0][k, :m])
+                 and torch.equal(got[1][k, :m], want[1][k, :m])) for k, m in enumerate(counts)):
+        raise RuntimeError(f"class_live_rows {label}: the kernel differs from its plain "
+                           f"version (counts {got[2].tolist()} vs {counts})")
+    cls_long = cls.long()
+    weights = torch.stack([ck.thinned_multiplicities(u[k], g * p_over_cnt[k][cls_long])
+                           if u is not None else p_over_cnt[k][cls_long] for k in range(c)])
+
+    def per_class():
+        for k in range(c):
+            w = p_over_cnt[k][cls_long]
+            ck.compact_live_rows_kernel(
+                w if u is None else ck.thinned_multiplicities(u[k], g * w))
+
+    live = sum(counts)
+    bound, bound_by = _class_bound_ms(c, n, u is not None, live)
+    ms, device_ms = _timed(torch, lambda: ck.class_live_rows_kernel(p_over_cnt, cls, g, u), 20,
+                           flush, FIRST_KERNEL)
+    per_ms, per_device_ms = _timed(torch, per_class, 20, flush, COMPACT_KERNEL, per_call=c)
+    row = dict(classes=c, n=n, live_rows=live, classes_without_rows=counts.count(0),
+               classes_without_members=int((torch.bincount(cls_long, minlength=c + 1)[:c] == 0)
+                                           .sum()), ms=ms,
+               device_ms=device_ms,
+               plain_ms=_timed(torch, lambda: ck.class_live_rows_plain(p_over_cnt, cls, g, u),
+                               5, flush)[0],
+               bound_ms=bound, bound_by=bound_by,
+               library_ms=_timed(torch, lambda: torch.nonzero(weights), 10, flush)[0],
+               per_class_ms=per_ms, per_class_device_ms=per_device_ms, max_abs_err=0.0)
+    print(f"kernel class_live_rows {label}: " + json.dumps(row), flush=True)
+    return row
+
+
 def _check_compaction(torch, ck, w):
     idx, wv, n_live = ck.compact_live_rows_kernel(w)
     idx_ref, wv_ref, n_ref = ck.compact_live_rows_plain(w)
@@ -339,11 +484,20 @@ def kernel_phase(torch, ck):
     """Each kernel against its plain version under three weight patterns at
     the VOC table, and under the thinned one at the Cityscapes table, then
     timed; the rows kept for the JSON line are the ``thinned`` ones, what the
-    main paths feed the kernels."""
+    main paths feed the kernels.  Every class's compaction at VOC's 21
+    classes and Cityscapes' 19, thinned (the JSON row) and as
+    ``expected_pallas`` feeds it (dense weights, no uniforms)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = _l2_flush(torch)
     voc = _kernel_shape(torch, ck, g, flush, N_VOC, ("dead_half", "thinned", "scattered"))
     city = _kernel_shape(torch, ck, g, flush, N_CITY, ("thinned",))
+    for out, c, n in ((voc, 21, N_VOC), (city, 19, N_CITY)):
+        p_over_cnt, cls, u = _class_inputs(torch, g, c, n)
+        out["class"] = _class_rows_row(torch, ck, flush, p_over_cnt, cls, NUM_NEGATIVES, u,
+                                       f"C={c} N={n} thinned")
+        out["class"]["expected_mode"] = _class_rows_row(
+            torch, ck, flush, p_over_cnt, cls, NUM_NEGATIVES, None, f"C={c} N={n} expected")
+        del p_over_cnt, cls, u
     return voc, city
 
 
@@ -373,7 +527,7 @@ def _kernel_shape(torch, ck, g, flush, n: int, kinds):
                         lambda: ck.compact_live_rows_plain(w), lambda: torch.nonzero(w)),
         }
         for name, (kern, plain, library) in timing.items():
-            ms, device_ms = _timed(torch, kern, 20, flush, FIRST_KERNEL)
+            ms, device_ms = _timed(torch, kern, 20, flush, COMPACT_KERNEL)
             library_ms = _timed(torch, library, 10, flush)[0] if library else matmul_ms
             row = dict(ms=ms, device_ms=device_ms,
                        plain_ms=_timed(torch, plain, 5, flush)[0],
@@ -395,8 +549,10 @@ def _kernel_shape(torch, ck, g, flush, n: int, kinds):
     return results
 
 
-def contrastive_phase(torch):
-    """The contrastive loss on the card (K1/K2) against the CPU (plain)."""
+def contrastive_phase(torch, ck):
+    """The contrastive loss on the card (K1/K2) against the CPU (plain) at a
+    small input; then one full-size VOC loss through ``class_live_rows``
+    against the same loss on the per-class path it replaced, bit for bit."""
     from css_tpu_torch.losses.contrastive import prototype_contrastive_loss
 
     g = torch.Generator().manual_seed(1)
@@ -426,6 +582,53 @@ def contrastive_phase(torch):
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=2e-2, atol=1e-2 * g_scale)
     print(f"contrastive: loss cuda {out['cuda'][0].item():.6f} cpu {out['cpu'][0].item():.6f}",
           flush=True)
+    _full_size_loss_check(torch, ck)
+
+
+def _full_size_loss_check(torch, ck):
+    """A VOC loss at full size (16 x 128^2 = 262,144 table rows, 21 classes,
+    Q = 256, G = 512, D = 256, ``sampled_pallas``): loss, new prototypes and
+    the gradient on ``rep`` through ``class_live_rows`` bit-equal to the
+    per-class path (``_PerClassPath``); each path's launches."""
+    from css_tpu_torch.losses.contrastive import prototype_contrastive_loss
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, h, w, c, q = 16, 128, 128, 21, 256
+    n = b * h * w
+    dev = "cuda"
+    inputs = (torch.randn(b, h, w, D, device=dev, generator=g),
+              torch.nn.functional.one_hot(
+                  torch.randint(0, c, (b, h, w), device=dev, generator=g), c).float(),
+              (torch.rand(b, h, w, device=dev, generator=g) < 0.8).float(),
+              torch.softmax(3 * torch.randn(b, h, w, c, device=dev, generator=g), dim=-1),
+              torch.randn(c, D, device=dev, generator=g))
+    draws = dict(tie=torch.randint(0, 1 << 24, (n,), device=dev, generator=g, dtype=torch.int32),
+                 u1=torch.rand(c, q, device=dev, generator=g),
+                 u=torch.rand(c, n, device=dev, generator=g))
+    out = {}
+    for path in ("batched", "per_class"):
+        x = inputs[0].detach().requires_grad_(True)
+        ck.reset_launches()
+        with _PerClassPath() if path == "per_class" else contextlib.nullcontext():
+            loss, protos = prototype_contrastive_loss(x, *inputs[1:], **draws,
+                                                      num_negatives=NUM_NEGATIVES)
+            loss.backward()
+        torch.cuda.synchronize()
+        out[path] = (loss.detach(), protos, x.grad, dict(ck.LAUNCHES))
+    _check_launches("contrastive full-size loss", out["batched"][3], 1, c)
+    want = dict(_want_launches(0, c), live_rows_compact=c, weighted_exp_softsum_fwd=c,
+                weighted_exp_softsum_bwd=c)
+    if out["per_class"][3] != want:
+        raise RuntimeError(f"contrastive per-class path: launches {out['per_class'][3]}, "
+                           f"want {want}")
+    same = [torch.equal(x, y) for x, y in zip(out["batched"][:3], out["per_class"][:3])]
+    print(f"contrastive full size (N={n}, C={c}): loss {out['batched'][0].item():.9f} through "
+          f"class_live_rows, {out['per_class'][0].item():.9f} per class; loss, prototypes, "
+          f"gradient bit-equal {same}; launches {json.dumps(out['batched'][3])} vs per class "
+          f"{json.dumps(out['per_class'][3])}", flush=True)
+    if not all(same) or not math.isfinite(out["batched"][0].item()):
+        raise RuntimeError(f"contrastive full size: the batched path differs from the "
+                           f"per-class path (loss, prototypes, gradient equal: {same})")
 
 
 def _check_finite(losses, label: str):
@@ -438,8 +641,9 @@ def _check_finite(losses, label: str):
 def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: str):
     """``warmup`` untimed steps, then ``steps`` timed ones with the launch
     counters zeroed and the peak reset just before; fails on a non-finite
-    loss or launches other than ``c`` per kernel per step (0: a path that
-    runs no kernel).  Returns (ms per step, peak GiB, launches)."""
+    loss or launches other than one contrastive loss over ``c`` classes a
+    step (``_want_launches``; ``c`` 0: a path that runs no kernel).  Returns
+    (ms per step, peak GiB, launches)."""
     for _ in range(warmup):
         one_step()
     torch.cuda.synchronize()
@@ -457,12 +661,47 @@ def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: st
     for i, m in enumerate(losses):
         print(f"{label} step {i}: {times[i] * 1e3:.3f} ms " + json.dumps(m), flush=True)
     _check_finite(losses, label)
-    if any(count != c * steps for count in launches.values()):
-        raise RuntimeError(f"{label}: launches {launches} in {steps} steps, want {c * steps} each")
+    _check_launches(f"{label} ({steps} steps)", launches, steps if c else 0, c)
     ms = sum(times) / steps * 1e3
     print(f"{label}: {ms:.3f} ms/step (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
           f"peak memory {peak:.3f} GiB, launches {json.dumps(launches)}", flush=True)
     return ms, peak, launches
+
+
+def _class_path_pairs(torch, ck, one_step, steps: int, c: int, label: str,
+                      profile: bool = False):
+    """The step through ``class_live_rows`` and on the per-class path it
+    replaced (``_PerClassPath``), ``steps`` timed steps a block, in turns:
+    batched, per-class, per-class, batched, twice; each block's launches
+    checked.  Prints each block's ms/step and the ratio of the sums; with
+    ``profile``, one more step on each path under ``profile_step``."""
+    ms = {"batched": [], "per_class": []}
+    for path in ("batched", "per_class", "per_class", "batched") * 2:
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        with _PerClassPath() if path == "per_class" else contextlib.nullcontext():
+            for _ in range(steps):
+                _check_finite([{k: v.item() for k, v in one_step().items()}],
+                              f"{label} {path}")
+            torch.cuda.synchronize()
+        ms[path].append((time.perf_counter() - t0) / steps * 1e3)
+        launches = dict(ck.LAUNCHES)
+        want = _want_launches(steps, c)
+        if path == "per_class":
+            want.update(class_live_rows=0, live_rows_compact=c * steps)
+        if launches != want:
+            raise RuntimeError(f"{label} {path}: launches {launches}, want {want}")
+    ratio = sum(ms["batched"]) / sum(ms["per_class"])
+    print(f"{label} class_live_rows vs per-class path, {steps} steps a block in turns "
+          f"(batched, per-class, per-class, batched, twice): batched {json.dumps(ms['batched'])} "
+          f"ms/step, per-class {json.dumps(ms['per_class'])} ms/step; batched / per-class "
+          f"{ratio:.4f}", flush=True)
+    if profile:
+        profile_step(torch, one_step, f"{label} batched profile")
+        with _PerClassPath():
+            profile_step(torch, one_step, f"{label} per-class profile")
+    return ratio
 
 
 def _voc_batch(torch, bsz: int, crop: int, c: int):
@@ -503,6 +742,7 @@ def train_phase(torch, ck, steps: int, profile: bool):
     if peak_gib > PEAK_GIB_LIMIT:
         raise RuntimeError(f"peak memory {peak_gib:.3f} GiB exceeds {PEAK_GIB_LIMIT} GiB")
     print(f"train: {2 * bsz * 1e3 / ms:.3f} img/s", flush=True)
+    _class_path_pairs(torch, ck, one_step, steps, c, "train", profile)
     if profile:
         profile_step(torch, one_step)
     return launches, dict(state=state, batch=batch, g=g, ms=ms)
@@ -560,9 +800,7 @@ def strategies_phase(torch, ck, train, steps: int, profile: bool):
         for i, m in enumerate(losses):
             print(f"{strategy} step {i}: {times[i] * 1e3:.3f} ms " + json.dumps(m), flush=True)
         _check_finite(losses, strategy)
-        if any(count != c * steps for count in launches.values()):
-            raise RuntimeError(f"{strategy}: launches {launches} in {steps} steps, "
-                               f"want {c * steps} each")
+        _check_launches(f"{strategy} ({steps} steps)", launches, steps, c)
         ms[strategy] = sum(times) / steps * 1e3
         share = torch.stack(kept).sum(0).tolist()
         print(f"{strategy}: {ms[strategy]:.3f} ms/step (min {min(times) * 1e3:.3f}, max "
@@ -613,8 +851,9 @@ def cross_entry_phase(torch, ck):
     if result["steps"] != 4 or flags != list(zip(ramp, (False, False, True, True))):
         raise RuntimeError(f"cross entry point: {result['steps']} steps, (weight, use_rep) "
                            f"{flags}, want {list(zip(ramp, (False, False, True, True)))}")
-    if len(probe.evals) != 2 or any(count != 21 * 4 for count in launches.values()):
-        raise RuntimeError(f"cross entry point: {len(probe.evals)} evals, launches {launches}")
+    if len(probe.evals) != 2:
+        raise RuntimeError(f"cross entry point: {len(probe.evals)} evals, want 2")
+    _check_launches("cross entry point", launches, 4)
     for i, m in enumerate(losses):
         print(f"cross entry step {i + 1} (weight {flags[i][0]:.6f}, rep labels "
               f"{flags[i][1]}): " + json.dumps(m), flush=True)
@@ -787,9 +1026,7 @@ def driver_phase(torch, ck, smi: str, profile: bool, keep_checkpoint: str):
         raise RuntimeError("driver: run B did not start from the prototypes run A saved")
     if len(probe.evals) != 2:
         raise RuntimeError(f"driver: {len(probe.evals)} evals, want one per run")
-    want = 21 * 6
-    if any(count != want for count in launches.values()):
-        raise RuntimeError(f"driver: launches {launches} over both runs, want {want} each")
+    _check_launches("driver (both runs, 6 steps)", launches, 6)
 
     sps = results["A"]["steps_per_sec"]
     for i, m in enumerate(losses):
@@ -843,7 +1080,7 @@ def _dense_kernel_row(torch, ck, a, r, w, inv_temp: float) -> dict:
                           lambda: ck.compact_live_rows_plain(w), lambda: torch.nonzero(w))}
     rows = {}
     for name, (kern, plain, library) in timing.items():
-        ms, device_ms = _timed(torch, kern, 20, flush, FIRST_KERNEL)
+        ms, device_ms = _timed(torch, kern, 20, flush, COMPACT_KERNEL)
         rows[name] = dict(n=w.numel(), live_rows=live, ms=ms, device_ms=device_ms,
                           plain_ms=_timed(torch, plain, 5, flush)[0],
                           bound_ms=bounds[name][0], bound_by=bounds[name][1],
@@ -868,7 +1105,7 @@ def optin_steps_phase(torch, ck, train, smi: str, steps: int):
     state, batch, g = train["state"], train["batch"], train["g"]
     c, crop, bsz = 21, 512, 8
     h, w = state.model.output_hw((crop, crop))
-    ms, losses_in, dense_calls = {}, [], []
+    ms, losses_in, class_calls, dense_calls = {}, [], [], []
 
     def runner(**overrides):
         cfg = ts.StepConfig(num_classes=c, crop_hw=(crop, crop), scale_range=(0.5, 1.5),
@@ -885,7 +1122,8 @@ def optin_steps_phase(torch, ck, train, smi: str, steps: int):
         one_step, warmup = runner(negative_mode=mode), 1
         if mode == "expected_pallas":   # the warm-up records the loss's inputs, a dense call
             undo = [_record_calls(ts, "prototype_contrastive_loss", losses_in),
-                    _record_calls(contrastive, "weighted_exp_softsum", dense_calls)]
+                    _record_calls(contrastive, "class_live_rows", class_calls),
+                    _record_calls(contrastive, "weighted_exp_softsum_live", dense_calls)]
             try:
                 one_step()
             finally:
@@ -912,10 +1150,16 @@ def optin_steps_phase(torch, ck, train, smi: str, steps: int):
           f"{dense:.6f} vs {plain:.6f} (gap {abs(dense - plain):.3e}, bound 2e-3)", flush=True)
     if not (math.isfinite(dense) and abs(dense - plain) <= 2e-3):
         raise RuntimeError(f"opt-in: expected_pallas loss {dense} vs expected {plain}")
-    (a, r, w_dense, inv_temp), _ = dense_calls[0]
+    # class 0's dense weights, as the loss built them before the batched compaction
+    (p_over_cnt, masked_cls, g_neg, _), _ = class_calls[0]
+    (a, r, *_, inv_temp), _ = dense_calls[0]
+    w_dense = p_over_cnt[0][masked_cls.long()]
     dense_rows = _dense_kernel_row(torch, ck, a.detach().to(torch.bfloat16), r, w_dense.detach(),
                                    inv_temp)
-    del losses_in, dense_calls, args, detached, kw, a, r, w_dense
+    dense_rows["class"] = _class_rows_row(torch, ck, _l2_flush(torch), p_over_cnt, masked_cls,
+                                          g_neg, None, "expected_pallas step")
+    del losses_in, class_calls, dense_calls, args, detached, kw, a, r, w_dense, p_over_cnt
+    del masked_cls
 
     _timed_steps(torch, ck, runner(aug_quantize=True), 1, 1, c, "opt-in aug_quantize")
     # the quantized augmentation on the card against the CPU, with the same
@@ -1158,6 +1402,7 @@ def cityscapes_phase(torch, ck, smi: str, steps: int, profile: bool):
     if peak > CITY_PEAK_GIB_LIMIT:
         raise RuntimeError(f"cityscapes: peak memory {peak:.3f} GiB exceeds "
                            f"{CITY_PEAK_GIB_LIMIT} GiB")
+    _class_path_pairs(torch, ck, fused, steps, c, "cityscapes fused", profile)
     labeled = bsz * step_cfg.crop_hw[0] * step_cfg.crop_hw[1]
     print(f"cityscapes ({smi}): {ms_fused:.3f} ms/step, {2 * bsz * 1e3 / ms_fused:.3f} img/s, "
           f"peak memory {peak:.3f} GiB (limit {CITY_PEAK_GIB_LIMIT}); OHEM kept "
@@ -1229,8 +1474,7 @@ def cityscapes_phase(torch, ck, smi: str, steps: int, profile: bool):
     if result["steps"] != 2 or len(probe.evals) != 1:
         raise RuntimeError(f"cityscapes entry point: {result['steps']} steps, "
                            f"{len(probe.evals)} evals")
-    if any(count != c * 2 for count in entry_launches.values()):
-        raise RuntimeError(f"cityscapes entry point: launches {entry_launches}, want {2 * c}")
+    _check_launches("cityscapes entry point", entry_launches, 2, c)
     e = probe.evals[0]
     print(f"cityscapes entry point: {seconds:.3f} s wall, {json.dumps(result)}, losses "
           f"{json.dumps(losses)}, eval {e['seconds'] * 1e3 / e['images']:.3f} ms/image over "
@@ -1392,9 +1636,9 @@ def _two_ranks(torch, workdir: str, smi: str):
               f"{json.dumps([round(t, 3) for t in r['save_s']])} s); peak memory "
               f"{r['peak_gib']:.3f} GiB; losses {json.dumps(r['losses'])}; launches "
               f"{json.dumps(r['launches'])}; saves {r['saves']}", flush=True)
-        if len(r["losses"]) != steps or any(n != 21 * steps for n in r["launches"].values()):
-            raise RuntimeError(f"distributed rank {r['rank']}: {len(r['losses'])} steps, "
-                               f"launches {r['launches']}, want {21 * steps} each")
+        if len(r["losses"]) != steps:
+            raise RuntimeError(f"distributed rank {r['rank']}: {len(r['losses'])} steps")
+        _check_launches(f"distributed rank {r['rank']}", r["launches"], steps)
         if r["result"]["steps"] != steps or len(r["evals"]) != 1:
             raise RuntimeError(f"distributed rank {r['rank']}: {r['result']}, {r['evals']}")
     digests = [r["result"]["state_sha256"][r["rank"]] for r in ranks]
@@ -1552,8 +1796,8 @@ def _voc_yaml(workdir: str, name: str, **overrides) -> str:
 def _driver_run(torch, ck, argv, label: str, steps: int):
     """``ori`` through the driver's entry point under a probe: finite
     losses, ``steps`` steps, one eval that counted every valid label pixel,
-    21 launches per kernel a step.  Returns (result, launches, probe,
-    seconds)."""
+    one contrastive loss's launches a step.  Returns (result, launches,
+    probe, seconds)."""
     from css_tpu_torch.cli import entries, train_main
 
     with _DriverProbe(torch, train_main) as probe:
@@ -1566,8 +1810,7 @@ def _driver_run(torch, ck, argv, label: str, steps: int):
     _check_finite(losses, label)
     if result["steps"] != steps or len(losses) != steps or len(probe.evals) != 1:
         raise RuntimeError(f"{label}: {result}, {len(losses)} steps, {len(probe.evals)} evals")
-    if any(n != 21 * steps for n in launches.values()):
-        raise RuntimeError(f"{label}: launches {launches}, want {21 * steps} each")
+    _check_launches(label, launches, steps)
     e = probe.evals[0]
     print(f"{label}: {seconds:.3f} s wall, {json.dumps(result)}, losses {json.dumps(losses)}, "
           f"eval {e['images']} images ({e['pixels']} valid label pixels counted), launches "
@@ -2068,9 +2311,7 @@ def recovery_phase(torch, ck, smi: str):
         return result, peak
 
     def want_launches(label, full_attempts):
-        if any(n != 21 * full_attempts for n in launches[label].values()):
-            raise RuntimeError(f"recovery {label}: launches {launches[label]}, want "
-                               f"{21 * full_attempts} each")
+        _check_launches(f"recovery {label}", launches[label], full_attempts)
 
     try:
         # (a), (b) and (a2) under deterministic algorithms: by default the card's
@@ -2279,8 +2520,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=3, help="timed train steps (>= 3)")
     parser.add_argument("--profile", action="store_true",
-                        help="profile one more bare step and one driver step and print "
-                             "their kernel tables")
+                        help="profile one more bare step (and one on the per-class path) "
+                             "and one driver step and print their kernel tables")
     args = parser.parse_args()
     if args.steps < 3:
         parser.error("--steps must be at least 3")
@@ -2315,7 +2556,7 @@ def main() -> int:
 
     kernels, city_kernels = kernel_phase(torch, ck)
     phase_done("kernels")
-    contrastive_phase(torch)
+    contrastive_phase(torch, ck)
     launches, train = train_phase(torch, ck, args.steps, args.profile)
     train_ms = train["ms"]
     phase_done("contrastive + train")
@@ -2359,8 +2600,11 @@ def main() -> int:
     source = "css_tpu_torch/csrc/" + ck.SOURCE
     tpu = "css_tpu/ops/pallas/contrastive_kernels.py"
     rows = []
+    # live_rows_compact (one weight vector) launches 0 times on every step path
+    # since class_live_rows compacts every class at once; its timings stay
     for name, key, line_no in (("weighted_exp_softsum_fwd", "k1", 35),
                                ("weighted_exp_softsum_bwd", "k2", 60),
+                               ("class_live_rows", "class", 155),
                                ("live_rows_compact", "compact", 155)):
         # the VOC train phase's row; the Cityscapes table's beside it
         city = dict(city_kernels[key], n=N_CITY, launches=city_launches[name])
@@ -2372,7 +2616,7 @@ def main() -> int:
         # the new paths' steps: the imported checkpoint resumed, the real files, OS16
         paths = dict(imported_resume_launches=import_launches[name],
                      files_launches=files_launches[name], os16_launches=os16_launches[name],
-                     # the recovery runs: 21 per attempt that reached the loss
+                     # the recovery runs: per attempt that reached the loss
                      recovery_launches={run: n[name] for run, n in recovery_launches.items()})
         rows.append(dict(name=name, route="cuda", source=source, replaces=f"{tpu}:{line_no}",
                          launches=launches[name], **kernels[key], cityscapes=city,

@@ -8,9 +8,11 @@
 // css_tpu/ops/pallas/contrastive_kernels.py: K1 (`k1_live_kernel` +
 // `sum_partials_kernel`) is `_fwd_kernel`, launched by `_run_fwd`; K2
 // (`k2_live_kernel` + `sum_partials_kernel`) is `_bwd_kernel`, launched by
-// `_run_bwd` from the custom_vjp backward.  The compaction
-// (`count_live_kernel` + `scatter_live_kernel`) replaces the TPU's per-tile
-// liveness vector `_live_tiles`.  Same function, same casts: bf16 operands
+// `_run_bwd` from the custom_vjp backward.  The compactions replace the
+// TPU's per-tile liveness vector `_live_tiles` (`:155`, an XLA op): on the
+// loss's path `class_live_rows_kernel`, one launch for every class, and for
+// one weight vector `count_live_kernel` + `scatter_live_kernel`.  Same
+// function, same casts: bf16 operands
 // with f32 accumulation, K2 rounds the weighted exponentials to bf16 before
 // its second product, no max-subtraction (anchors and rows are both
 // L2-normalised, so |logit| <= inv_temp = 2 on the main path), and no
@@ -25,7 +27,17 @@
 // the bytes of the live rows and K2 by its tensor-core operations, about
 // 20 and 35 us.
 //
+// The compaction for every class reads the classes' uniforms [C, N] f32 and
+// the rows' classes [N] int32 once and writes 8 bytes per live row: bound by
+// bytes, about 7 us at VOC's C = 21, N = 262,144 (22 MB of uniforms).
+//
 // Design.
+//  * Compaction for every class at once (the loss's path): one cluster of
+//    eight CTAs per class, each over a contiguous share of the rows; it
+//    computes the weights from the class's row of p_over_cnt and the
+//    uniforms, ballots them into shared memory, takes its offset from the
+//    counts of the CTAs before it through distributed shared memory, and
+//    scatters; see the section below.
 //  * Compaction, once per weight vector: one pass counts the live weights
 //    of each 2,048-weight block (warp ballots); a second pass takes the
 //    exclusive prefix of the block counts and scatters the live row indices
@@ -55,9 +67,12 @@
 // The kernels launch on the caller's stream, never synchronise and allocate
 // nothing; the caller passes outputs and scratch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -250,6 +265,143 @@ scatter_live_kernel(const float* __restrict__ w, long long n, const int* __restr
           base + offset[k * (kCompactThreads / 32) + warp] + __popc(ballot[k] & below);
       idx[pos] = static_cast<int>(first + k * kCompactThreads + threadIdx.x);
       wv[pos] = v[k];
+    }
+  }
+}
+
+// ------------------------------------------- every class's live rows at once --
+//
+// For each class c (one thread-block cluster of kClassCluster CTAs) the
+// weights w[c, n] = p_over_cnt[c, cls[n]], thinned when the uniforms u are
+// given: lam = g * p, m = floor(lam) + (u[c, n] < lam - floor(lam)), in the
+// same f32 operations and order as the plain version (no contraction into an
+// FMA); their nonzero rows are listed in ascending order.  Each CTA takes a
+// contiguous share of N: pass 1 ballots its weights into shared memory, one
+// word per 32 rows in row order, and counts them; the CTAs publish their
+// counts in their own shared memory, cross cluster.sync(), and each reads the
+// counts of the CTAs before it through distributed shared memory; pass 2 walks
+// the ballot words in order and, for each live row only, computes its weight
+// again and writes its index and weight at its rank.  One launch for every
+// class, one read of u and cls; no atomics, no global scratch, no spin.
+
+constexpr int kClassCluster = 8;        // CTAs per class: the portable cluster size
+constexpr int kClassUnroll = 32;        // ballot words per warp in flight in either pass
+constexpr int kClassRowsPerStep = kCompactThreads * kClassUnroll;  // rows per pass-1 step
+constexpr int kMaxClasses = 127;        // p_over_cnt rows are C + 1 <= 128 wide
+constexpr int kClassSmemLimit = 227 * 1024 - 4096;  // ballot words; the rest is static
+
+// A row's weight from its class's entry p of p_over_cnt and, when thinned,
+// its uniform: as torch computes g * p, then thinned_multiplicities.
+__device__ __forceinline__ float class_weight(float p, float g, bool thinned, float u) {
+  if (!thinned) return p;
+  const float lam = __fmul_rn(g, p);
+  const float base = floorf(lam);
+  return __fadd_rn(base, u < __fsub_rn(lam, base) ? 1.f : 0.f);
+}
+
+__global__ void __cluster_dims__(kClassCluster, 1, 1) __launch_bounds__(kCompactThreads)
+class_live_rows_kernel(const float* __restrict__ p_over_cnt, int num_classes,
+                       const int* __restrict__ cls, const float* __restrict__ u, float g,
+                       long long n, int share, long long n_pad, int* __restrict__ idx,
+                       float* __restrict__ wv, int* __restrict__ n_live) {
+  extern __shared__ unsigned ballots[];  // share / 32 words, row order
+  __shared__ float p_row[kMaxClasses + 1];
+  __shared__ int scratch[kCompactThreads / 32];
+  __shared__ int cta_live;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int c = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int words = share / 32;
+  const long long first = static_cast<long long>(rank) * share;
+  const float* u_c = u == nullptr ? nullptr : u + static_cast<long long>(c) * n;
+  for (int k = threadIdx.x; k <= num_classes; k += kCompactThreads) {
+    p_row[k] = p_over_cnt[static_cast<long long>(c) * (num_classes + 1) + k];
+  }
+  __syncthreads();
+
+  // pass 1: word j holds the live bits of rows first + 32 j .. first + 32 j + 31
+  // (share is a multiple of kClassRowsPerStep, so every word is the CTA's own)
+  const bool thinned = u_c != nullptr;
+  int live = 0;
+  for (int w0 = 0; w0 < words; w0 += kClassUnroll * (kCompactThreads / 32)) {
+    int k_cls[kClassUnroll];
+    float k_u[kClassUnroll];
+#pragma unroll
+    for (int k = 0; k < kClassUnroll; ++k) {  // the loads first, all in flight
+      const long long i =
+          first + static_cast<long long>(w0 + k * (kCompactThreads / 32) + warp) * 32 + lane;
+      const bool in = i < n;
+      k_cls[k] = in ? __ldg(cls + i) : -1;
+      k_u[k] = (in && thinned) ? __ldg(u_c + i) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kClassUnroll; ++k) {
+      const int word = w0 + k * (kCompactThreads / 32) + warp;
+      const bool on = k_cls[k] >= 0 && class_weight(p_row[k_cls[k]], g, thinned, k_u[k]) != 0.f;
+      const unsigned b = __ballot_sync(0xffffffffu, on);
+      if (lane == 0) ballots[word] = b;
+      live += __popc(b);
+    }
+  }
+  live = block_sum(lane == 0 ? live : 0, scratch);
+  if (threadIdx.x == 0) cta_live = live;
+  cluster.sync();  // every CTA's count published
+  int before = 0;
+  if (threadIdx.x < rank) before = *cluster.map_shared_rank(&cta_live, threadIdx.x);
+  cluster.sync();  // no CTA leaves while another reads its count
+  int running = block_sum(before, scratch);
+  if (rank == kClassCluster - 1 && threadIdx.x == 0) n_live[c] = running + live;
+
+  // pass 2: the words in chunks of one per thread; each chunk's exclusive
+  // prefix, then each warp scatters 32 of the chunk's words, live rows only,
+  // their classes and uniforms loaded together
+  static_assert(kClassUnroll == 32, "pass 2 takes a warp's 32 words at once");
+  int* idx_c = idx + static_cast<long long>(c) * n_pad;
+  float* wv_c = wv + static_cast<long long>(c) * n_pad;
+  const unsigned below = (1u << lane) - 1u;
+  for (int w0 = 0; w0 < words; w0 += kCompactThreads) {
+    const int word = w0 + threadIdx.x;
+    const unsigned mine = word < words ? ballots[word] : 0u;
+    const int cnt = __popc(mine);
+    int incl = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    if (lane == 31) scratch[warp] = incl;
+    __syncthreads();
+    int warp_off = 0, chunk = 0;
+#pragma unroll
+    for (int k = 0; k < kCompactThreads / 32; ++k) {
+      warp_off += k < warp ? scratch[k] : 0;
+      chunk += scratch[k];
+    }
+    const int pos = running + warp_off + incl - cnt;  // this word's first rank
+    running += chunk;
+    __syncthreads();  // scratch is refilled by the next chunk
+    if (!__any_sync(0xffffffffu, mine != 0u)) continue;  // the warp's words are all dead
+    // lane j's word is word w0 + 32 warp + j: lane l takes row 32 word + l of each
+    int k_cls[kClassUnroll];
+    float k_u[kClassUnroll];
+#pragma unroll
+    for (int j = 0; j < kClassUnroll; ++j) {
+      const bool on = __shfl_sync(0xffffffffu, mine, j) >> lane & 1u;
+      const long long i = first + static_cast<long long>(w0 + warp * 32 + j) * 32 + lane;
+      k_cls[j] = on ? __ldg(cls + i) : 0;
+      k_u[j] = (on && thinned) ? __ldg(u_c + i) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kClassUnroll; ++j) {
+      const unsigned b = __shfl_sync(0xffffffffu, mine, j);
+      const int at = __shfl_sync(0xffffffffu, pos, j) + __popc(b & below);
+      if (b >> lane & 1u) {
+        idx_c[at] = static_cast<int>(first + static_cast<long long>(w0 + warp * 32 + j) * 32 +
+                                     lane);
+        wv_c[at] = class_weight(p_row[k_cls[j]], g, thinned, k_u[j]);
+      }
     }
   }
 }
@@ -606,4 +758,34 @@ extern "C" int css_weighted_exp_softsum_bwd(const void* a, const void* r, const 
                                             float inv_temp, void* stream) {
   return dispatch<true>(a, r, idx, wv, n_live, partial, out, q_pad, d_pad, chunks, inv_temp,
                         stream);
+}
+
+// p_over_cnt [C, C + 1] f32 (1 <= C <= 127), masked_cls [n] int32 with values
+// in [0, C], u null or [C, n] f32, all contiguous; idx [C, n_pad] int32, wv
+// [C, n_pad] f32 (row c's first n_live[c] entries used, n_pad >= n) and
+// n_live [C] int32 outputs.  One launch: a cluster of kClassCluster CTAs per
+// class.  Returns a cudaError_t.
+extern "C" int css_class_live_rows(const void* p_over_cnt, int num_classes, const void* masked_cls,
+                                   long long n, float g, const void* u, void* idx, void* wv,
+                                   void* n_live, long long n_pad, void* stream) {
+  if (num_classes < 1 || num_classes > kMaxClasses || n < 0 || n > 0x7fffffffLL || n_pad < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // each CTA's share of the rows, a whole number of pass-1 steps
+  const long long per_cta = (n + kClassCluster - 1) / kClassCluster;
+  const long long share =
+      (max(per_cta, 1LL) + kClassRowsPerStep - 1) / kClassRowsPerStep * kClassRowsPerStep;
+  const long long smem = share / 32 * 4;
+  if (smem > kClassSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(class_live_rows_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(kClassCluster, num_classes);
+  class_live_rows_kernel<<<grid, kCompactThreads, static_cast<size_t>(smem),
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p_over_cnt), num_classes, static_cast<const int*>(masked_cls),
+      static_cast<const float*>(u), g, n, static_cast<int>(share), n_pad,
+      static_cast<int*>(idx), static_cast<float*>(wv), static_cast<int*>(n_live));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -8,13 +8,16 @@ Per class c, with prototypes updated by the EMA of the class means:
     with the probability p = softmax of prototype similarity / temp:
     - ``sampled_pallas``: the multiset sum over pixels n of
       m_n exp(<a, r_n> / temp), with thinned multiplicities m drawn around
-      lam_n = G p(class(n)) / count(class(n)), through K1/K2;
+      lam_n = G p(class(n)) / count(class(n)), through K1/K2 (every class's
+      multiplicities built and compacted in one launch before the class
+      loop, ``class_live_rows``);
     - ``sampled``: G negatives per anchor, the class by inverse CDF and the
       pixel uniformly within it, read from the table sorted by class;
     - ``expected``: the exact expectation of the sampled sum, G times the
       weighted sum over all member pixels with weights w_n =
       p(class(n)) / count(class(n)), as a plain product;
-    - ``expected_pallas``: the same sum through K1/K2 (dense weights);
+    - ``expected_pallas``: the same sum through K1/K2 (dense weights,
+      compacted for every class at once as in ``sampled_pallas``);
   * InfoNCE with the own prototype as the positive.
 All C classes run every step; classes without a hard anchor or without
 pixels contribute 0.  The loss is the sum over classes divided by the number
@@ -42,8 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from css_tpu_torch.ops.kernels.contrastive_kernels import (weighted_exp_softsum,
-                                                          weighted_exp_softsum_stochastic)
+from css_tpu_torch.ops.kernels.contrastive_kernels import (class_live_rows,
+                                                          weighted_exp_softsum_live)
 from css_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = ["prototype_contrastive_loss", "update_prototypes", "grouped_random_order",
@@ -224,19 +227,23 @@ def prototype_contrastive_loss(
         p_over_cnt = F.pad(p / torch.clamp_min(counts_all, 1.0)[None, :], (0, 1))  # [C, C+1]
         if negative_mode == "expected":
             table_f32 = rep_table.float()
+        else:
+            # every class's live rows at once: the weights p_over_cnt[c][masked_cls],
+            # in sampled_pallas thinned from G times them with the uniforms u[c]
+            idx, wv, n_live = class_live_rows(p_over_cnt, masked_cls.int(), g,
+                                              u if negative_mode == "sampled_pallas" else None)
 
         def class_loss(c):
-            w_c = p_over_cnt[c][masked_cls]                             # [N]
             if negative_mode == "expected":
-                return checkpoint(_expected_class_loss, anchors[c], protos_n[c], w_c,
-                                  table_f32, temp, g, use_reentrant=False)
+                return checkpoint(_expected_class_loss, anchors[c], protos_n[c],
+                                  p_over_cnt[c][masked_cls], table_f32, temp, g,
+                                  use_reentrant=False)
             a = l2_normalize(anchors[c])
             pos = (a @ protos_n[c]) / temp                              # [Q]
+            neg_sum = weighted_exp_softsum_live(a, rep_table, idx[c], wv[c], n_live[c:c + 1],
+                                                1.0 / temp)
             if negative_mode == "expected_pallas":
-                neg_sum = g * weighted_exp_softsum(a, rep_table, w_c, 1.0 / temp)
-            else:
-                neg_sum = weighted_exp_softsum_stochastic(a, rep_table, g * w_c, 1.0 / temp,
-                                                          u[c])
+                neg_sum = g * neg_sum
             return torch.mean(torch.log(torch.exp(pos) + neg_sum) - pos)
 
     total = rep_flat.new_zeros(())

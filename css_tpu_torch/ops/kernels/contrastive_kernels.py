@@ -13,13 +13,17 @@ exponentials to bf16 before the second product, as the TPU kernel does.
 Only rows with a nonzero weight contribute, so a compaction first lists them:
 ``idx`` [N] int32 (the live rows, ascending, in the first L entries), ``wv``
 [N] f32 (their weights) and ``n_live`` [1] int32 (L, kept on the device).  K1
-and K2 run over that list; the autograd function compacts once in forward
-and saves the compaction for backward.
+and K2 run over that list; the autograd functions save the compaction for
+backward.  The contrastive loss compacts every class at once
+(:func:`class_live_rows`: the weights p_over_cnt[c, class(n)], thinned with
+the uniforms ``u`` in ``sampled_pallas``, built and compacted in one launch)
+and hands each class's rows to :func:`weighted_exp_softsum_live`;
+:func:`weighted_exp_softsum` compacts one weight vector itself.
 
 On CUDA tensors the wrappers launch the kernels of
 ``css_tpu_torch/csrc/contrastive_kernels.cu`` (or raise); on CPU tensors they
 run the plain PyTorch versions, which upcast the bf16 operands and take the
-products in f32.  ``LAUNCHES`` counts wrapper launches (compaction, K1, K2),
+products in f32.  ``LAUNCHES`` counts wrapper launches (the compactions, K1, K2),
 so a run can show that it went through the kernels.  Each launch runs with
 its tensors' device current, since the library's attribute setting and
 launch act on the current device (a rank on ``cuda:1`` may have device 0
@@ -39,6 +43,8 @@ __all__ = ["weighted_exp_softsum", "weighted_exp_softsum_stochastic",
            "thinned_multiplicities", "WeightedExpSoftsum", "softsum_plain",
            "softsum_moment_plain", "softsum_kernel", "softsum_moment_kernel",
            "compact_live_rows", "compact_live_rows_plain", "compact_live_rows_kernel",
+           "class_live_rows", "class_live_rows_plain", "class_live_rows_kernel",
+           "weighted_exp_softsum_live", "WeightedExpSoftsumLive",
            "softsum_live_plain", "softsum_moment_live_plain", "softsum_live_kernel",
            "softsum_moment_live_kernel", "LAUNCHES", "reset_launches", "SOURCE"]
 
@@ -47,9 +53,12 @@ TILE_N = 64            # live rows per tile, anchors per warpgroup (kTile in the
 BLOCK_Q = 64           # Q pads to this
 CTA_ANCHORS = 128      # anchors per CTA (kAnchors)
 COMPACT_BLOCK = 2048   # weights per compaction block (kCompactBlock)
+MAX_CLASSES = 127      # class_live_rows' largest C (kMaxClasses)
+CLASS_MAX_ROWS = 8 * 1_826_816   # its largest N: 8 CTAs a class, each with the
+                                 # ballot words of at most 1,826,816 rows in shared memory
 _D_PAD = (64, 128, 256)
 
-LAUNCHES = {"live_rows_compact": 0, "weighted_exp_softsum_fwd": 0,
+LAUNCHES = {"class_live_rows": 0, "live_rows_compact": 0, "weighted_exp_softsum_fwd": 0,
             "weighted_exp_softsum_bwd": 0}
 
 
@@ -88,6 +97,34 @@ def compact_live_rows_plain(w: torch.Tensor):
     return idx, wv, torch.tensor([n], dtype=torch.int32, device=w.device)
 
 
+def _n_pad(n: int) -> int:
+    """Row length of a class's compaction: N rounded up to a tile (at least
+    one), so each class's row is contiguous and 16-byte aligned."""
+    return -(-max(n, 1) // TILE_N) * TILE_N
+
+
+def class_live_rows_plain(p_over_cnt: torch.Tensor, masked_cls: torch.Tensor, g,
+                          u=None):
+    """Every class's compaction, plain: ``(idx [C, n_pad] int32, wv [C, n_pad]
+    f32, n_live [C] int32)``, row c :func:`compact_live_rows_plain` of class
+    c's weights (zero tails).  The weights are ``w = p_over_cnt[c][masked_cls]``
+    (``p_over_cnt`` [C, C + 1], ``masked_cls`` [N] in [0, C]) and, with the
+    uniforms ``u`` [C, N], ``thinned_multiplicities(u[c], g * w)``: the
+    loss's per-class arithmetic, class by class.  No gradient."""
+    p_over_cnt = p_over_cnt.detach()
+    c, n = p_over_cnt.shape[0], masked_cls.shape[0]
+    idx = torch.zeros((c, _n_pad(n)), dtype=torch.int32, device=p_over_cnt.device)
+    wv = torch.zeros((c, _n_pad(n)), dtype=torch.float32, device=p_over_cnt.device)
+    n_live = torch.zeros((c,), dtype=torch.int32, device=p_over_cnt.device)
+    cls = masked_cls.long()
+    for k in range(c):
+        w = p_over_cnt[k][cls]
+        if u is not None:
+            w = thinned_multiplicities(u[k], g * w)
+        idx[k, :n], wv[k, :n], n_live[k:k + 1] = compact_live_rows_plain(w)
+    return idx, wv, n_live
+
+
 def _live(r, idx, wv, n_live):
     n = int(n_live[0])
     return r[idx[:n].long()].float(), wv[:n]
@@ -116,6 +153,10 @@ def _library() -> ctypes.CDLL:
         lib.css_compact_live_rows.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + \
             [ctypes.c_void_p] * 5
         lib.css_compact_live_rows.restype = ctypes.c_int
+        lib.css_class_live_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float] + \
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+        lib.css_class_live_rows.restype = ctypes.c_int
         for fn in (lib.css_weighted_exp_softsum_fwd, lib.css_weighted_exp_softsum_bwd):
             fn.argtypes = [ctypes.c_void_p] * 7 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -166,6 +207,54 @@ def compact_live_rows_kernel(w: torch.Tensor):
     _check_rc("css_compact_live_rows", rc)
     LAUNCHES["live_rows_compact"] += 1
     return idx[:n], wv[:n], n_live
+
+
+def class_live_rows_kernel(p_over_cnt: torch.Tensor, masked_cls: torch.Tensor, g,
+                           u=None):
+    """Every class's compaction on the card, one launch: ``(idx, wv, n_live)``
+    as in :func:`class_live_rows_plain`, with undefined tails; the counts stay
+    on the device."""
+    dev = p_over_cnt.device
+    if not p_over_cnt.is_cuda:
+        raise ValueError(f"class_live_rows kernel: p_over_cnt must lie on a CUDA device, "
+                         f"not {dev}")
+    operands = (masked_cls,) if u is None else (masked_cls, u)
+    if any(t.device != dev for t in operands):
+        raise ValueError(f"class_live_rows kernel: p_over_cnt, masked_cls and u must share "
+                         f"one device; got {dev}, {masked_cls.device}"
+                         + ("" if u is None else f", {u.device}"))
+    c = p_over_cnt.shape[0] if p_over_cnt.ndim == 2 else 0
+    if p_over_cnt.dtype != torch.float32 or p_over_cnt.shape != (c, c + 1):
+        raise TypeError(f"class_live_rows kernel: need f32 p_over_cnt [C, C + 1]; got "
+                        f"{p_over_cnt.dtype} {tuple(p_over_cnt.shape)}")
+    if not 1 <= c <= MAX_CLASSES:
+        raise ValueError(f"class_live_rows kernel: C={c} outside 1..{MAX_CLASSES}")
+    if masked_cls.dtype != torch.int32 or masked_cls.ndim != 1:
+        raise TypeError(f"class_live_rows kernel: need 1-D int32 masked_cls; got "
+                        f"{masked_cls.dtype} {tuple(masked_cls.shape)}")
+    n = masked_cls.shape[0]
+    if n > CLASS_MAX_ROWS:
+        raise ValueError(f"class_live_rows kernel: N={n} exceeds {CLASS_MAX_ROWS} rows")
+    if u is not None and (u.dtype != torch.float32 or u.shape != (c, n)):
+        raise TypeError(f"class_live_rows kernel: need f32 u [C, N] = [{c}, {n}]; got "
+                        f"{u.dtype} {tuple(u.shape)}")
+    if not all(t.is_contiguous() for t in (p_over_cnt,) + operands):
+        raise ValueError("class_live_rows kernel: p_over_cnt, masked_cls and u must be "
+                         "contiguous")
+    n_pad = _n_pad(n)
+    # one allocation: idx [C, n_pad] | wv [C, n_pad] | n_live [C]
+    buf = torch.empty(2 * c * n_pad + c, dtype=torch.int32, device=dev)
+    idx = buf[:c * n_pad].view(c, n_pad)
+    wv = buf[c * n_pad:2 * c * n_pad].view(torch.float32).view(c, n_pad)
+    n_live = buf[2 * c * n_pad:]
+    with torch.cuda.device(dev):
+        rc = _library().css_class_live_rows(
+            p_over_cnt.data_ptr(), c, masked_cls.data_ptr(), n, float(g),
+            None if u is None else u.data_ptr(), idx.data_ptr(), wv.data_ptr(),
+            n_live.data_ptr(), n_pad, _stream(p_over_cnt))
+    _check_rc("css_class_live_rows", rc)
+    LAUNCHES["class_live_rows"] += 1
+    return idx, wv, n_live
 
 
 def _check_cuda_operands(a, r, idx, wv, n_live):
@@ -251,6 +340,12 @@ def compact_live_rows(w):
     return compact_live_rows_plain(w)
 
 
+def class_live_rows(p_over_cnt, masked_cls, g, u=None):
+    if p_over_cnt.is_cuda:
+        return class_live_rows_kernel(p_over_cnt, masked_cls, g, u)
+    return class_live_rows_plain(p_over_cnt, masked_cls, g, u)
+
+
 def _softsum_live(a, r, idx, wv, n_live, inv_temp):
     if a.is_cuda:
         return softsum_live_kernel(a, r, idx, wv, n_live, inv_temp)
@@ -261,6 +356,24 @@ def _softsum_moment_live(a, r, idx, wv, n_live, inv_temp):
     if a.is_cuda:
         return softsum_moment_live_kernel(a, r, idx, wv, n_live, inv_temp)
     return softsum_moment_live_plain(a, r, idx, wv, n_live, inv_temp)
+
+
+def _k1_saving(ctx, a, r, idx, wv, n_live, inv_temp):
+    """K1 over a compaction; saves the bf16 anchors, the table and the
+    compaction for :func:`_k2_grad`."""
+    a_b = a.to(torch.bfloat16)
+    ctx.save_for_backward(a_b, r, idx, wv, n_live)
+    ctx.inv_temp = float(inv_temp)
+    ctx.a_dtype = a.dtype
+    return _softsum_live(a_b, r, idx, wv, n_live, ctx.inv_temp)
+
+
+def _k2_grad(ctx, g):
+    """The gradient for ``a``: (g * inv_temp)[:, None] * K2 on what
+    :func:`_k1_saving` saved."""
+    a_b, r, idx, wv, n_live = ctx.saved_tensors
+    m = _softsum_moment_live(a_b, r, idx, wv, n_live, ctx.inv_temp)
+    return ((g * ctx.inv_temp)[:, None] * m).to(ctx.a_dtype)
 
 
 class WeightedExpSoftsum(torch.autograd.Function):
@@ -274,19 +387,24 @@ class WeightedExpSoftsum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, r, w, inv_temp):
-        a_b = a.to(torch.bfloat16)
-        idx, wv, n_live = compact_live_rows(w)
-        ctx.save_for_backward(a_b, r, idx, wv, n_live)
-        ctx.inv_temp = float(inv_temp)
-        ctx.a_dtype = a.dtype
-        return _softsum_live(a_b, r, idx, wv, n_live, ctx.inv_temp)
+        return _k1_saving(ctx, a, r, *compact_live_rows(w), inv_temp)
 
     @staticmethod
     def backward(ctx, g):
-        a_b, r, idx, wv, n_live = ctx.saved_tensors
-        m = _softsum_moment_live(a_b, r, idx, wv, n_live, ctx.inv_temp)
-        da = (g * ctx.inv_temp)[:, None] * m
-        return da.to(ctx.a_dtype), None, None, None
+        return _k2_grad(ctx, g), None, None, None
+
+
+class WeightedExpSoftsumLive(torch.autograd.Function):
+    """:class:`WeightedExpSoftsum` over a finished compaction (one class's
+    row of :func:`class_live_rows`): K1 forward, K2 backward."""
+
+    @staticmethod
+    def forward(ctx, a, r, idx, wv, n_live, inv_temp):
+        return _k1_saving(ctx, a, r, idx, wv, n_live, inv_temp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _k2_grad(ctx, g), None, None, None, None, None
 
 
 def weighted_exp_softsum(a: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
@@ -305,6 +423,23 @@ def weighted_exp_softsum(a: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
             f"weighted_exp_softsum: weights w must be [N]={r.shape[0]}, "
             f"got {tuple(w.shape)}")
     return WeightedExpSoftsum.apply(a, r, w, inv_temp)
+
+
+def weighted_exp_softsum_live(a: torch.Tensor, r: torch.Tensor, idx: torch.Tensor,
+                              wv: torch.Tensor, n_live: torch.Tensor,
+                              inv_temp: float) -> torch.Tensor:
+    """s[q] = sum_l wv[l] * exp(inv_temp * <a[q], r[idx[l]]>) over the first
+    ``n_live[0]`` entries of a compaction, differentiable in ``a``: what
+    :func:`weighted_exp_softsum` computes, with the compaction given."""
+    if a.ndim != 2 or r.ndim != 2 or a.shape[1] != r.shape[1]:
+        raise ValueError(
+            f"weighted_exp_softsum_live: need a [Q, D] and r [N, D] with matching "
+            f"D; got a {tuple(a.shape)}, r {tuple(r.shape)}")
+    if idx.ndim != 1 or idx.shape != wv.shape or tuple(n_live.shape) != (1,):
+        raise ValueError(
+            f"weighted_exp_softsum_live: need idx and wv [L_max] and n_live [1]; got "
+            f"{tuple(idx.shape)}, {tuple(wv.shape)}, {tuple(n_live.shape)}")
+    return WeightedExpSoftsumLive.apply(a, r, idx, wv, n_live, inv_temp)
 
 
 def thinned_multiplicities(u: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:

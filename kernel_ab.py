@@ -52,7 +52,7 @@ def main() -> int:
         live = int(torch.count_nonzero(w))
         for name, fn in (("k1", ck.softsum_kernel), ("k2", ck.softsum_moment_kernel)):
             ms, device_ms = smoke._timed(torch, lambda: fn(a, r, w, smoke.INV_TEMP),
-                                         20, flush, smoke.FIRST_KERNEL)
+                                         20, flush, smoke.COMPACT_KERNEL)
             print(json.dumps(dict(label=label, kernel=name, w=kind, live_rows=live, ms=ms,
                                   device_ms=device_ms)), flush=True)
         del a, r, w

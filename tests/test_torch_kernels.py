@@ -85,8 +85,10 @@ def test_cpu_tensors_take_the_plain_versions():
     a_t = torch.from_numpy(a).requires_grad_(True)
     tck.weighted_exp_softsum(a_t, torch.from_numpy(r).to(torch.bfloat16),
                              torch.from_numpy(w), 2.0).sum().backward()
-    assert tck.LAUNCHES == {"live_rows_compact": 0, "weighted_exp_softsum_fwd": 0,
-                            "weighted_exp_softsum_bwd": 0}
+    tck.class_live_rows(torch.rand(3, 4), torch.zeros(300, dtype=torch.int32), 512,
+                        torch.rand(3, 300))
+    assert tck.LAUNCHES == {"class_live_rows": 0, "live_rows_compact": 0,
+                            "weighted_exp_softsum_fwd": 0, "weighted_exp_softsum_bwd": 0}
 
 
 def test_shape_errors_match_jax():

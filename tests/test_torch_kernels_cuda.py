@@ -1,4 +1,4 @@
-"""The CUDA kernels (live-row compaction, K1, K2) against their plain
+"""The CUDA kernels (the live-row compactions, K1, K2) against their plain
 PyTorch versions, on the card.
 
 Needs no JAX, so it also runs where only the port is installed:
@@ -10,7 +10,8 @@ with f32 accumulation, in a different order, so ``s`` agrees to rtol 1e-3.
 K2 rounds ``exp`` to bf16 before its second product, and an order-of-sum
 difference can flip that rounding by one bf16 step (2^-8 relative) on single
 entries, so ``M`` is held to rtol 1e-2 with atol 1e-2 * max|M|.  The
-compaction is exact: same indices, same order, same count as torch.nonzero.
+compactions are exact: same indices, same order, same count as torch.nonzero
+and, for every class at once, as ``class_live_rows_plain``.
 """
 
 import pytest
@@ -90,8 +91,8 @@ def test_autograd_function_uses_both_kernels(cuda):
     a = a.float().requires_grad_(True)
     ck.reset_launches()
     torch.log(ck.weighted_exp_softsum(a, r, w, 2.0)).sum().backward()
-    assert ck.LAUNCHES == {"live_rows_compact": 1, "weighted_exp_softsum_fwd": 1,
-                           "weighted_exp_softsum_bwd": 1}
+    assert ck.LAUNCHES == {"class_live_rows": 0, "live_rows_compact": 1,
+                           "weighted_exp_softsum_fwd": 1, "weighted_exp_softsum_bwd": 1}
 
     a_ref = a.detach().clone().requires_grad_(True)
     logits = (a_ref.to(torch.bfloat16).float() @ r.float().T) * 2.0
@@ -232,3 +233,163 @@ def test_dense_weights_forward_and_backward_match_plain(cuda):
     assert 0.7 * n < int((w > 0).sum()) < 0.8 * n
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=1e-6)
     _close_m(out["cuda"][1], out["cpu"][1])
+
+
+def _class_case(device, c, n, seed, thinned):
+    """Inputs of ``class_live_rows`` as the loss builds them: p_over_cnt
+    [C, C+1] (the last column 0; class 0 without pixels, so its column is
+    0 too, and without negatives, so its row is 0: no live row), masked_cls
+    [N] int32 in [0, C] (C: not a member), the uniforms."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cls = torch.randint(0, c + 1, (n,), generator=g)
+    cls[cls == 0] = c
+    counts = torch.bincount(cls, minlength=c + 1)[:c].float()
+    p = torch.softmax(torch.randn(c, c, generator=g), dim=1) * (counts > 0)
+    p[0] = 0.0
+    p_over_cnt = torch.nn.functional.pad(p / counts.clamp_min(1.0), (0, 1))
+    u = torch.rand(c, n, generator=g) if thinned else None
+    return (p_over_cnt.to(device), cls.to(torch.int32).to(device),
+            None if u is None else u.to(device))
+
+
+def _assert_same_rows(got, want):
+    idx, wv, n_live = got
+    idx_ref, wv_ref, n_ref = want
+    assert torch.equal(n_live, n_ref)
+    for k, live in enumerate(n_ref.tolist()):
+        assert torch.equal(idx[k, :live], idx_ref[k, :live])
+        assert torch.equal(wv[k, :live], wv_ref[k, :live])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("thinned", [True, False])
+@pytest.mark.parametrize("c,n", [(21, 262_144), (19, 297_992), (3, 1_000), (5, 2_049),
+                                 (2, 2_000_000)])
+def test_class_live_rows_match_plain(cuda, c, n, thinned):
+    p_over_cnt, cls, u = _class_case(cuda, c, n, seed=c + n, thinned=thinned)
+    got = ck.class_live_rows_kernel(p_over_cnt, cls, 512, u)
+    torch.cuda.synchronize()
+    want = ck.class_live_rows_plain(p_over_cnt, cls, 512, u)
+    _assert_same_rows(got, want)
+    assert got[0].shape == want[0].shape == (c, -(-n // 64) * 64)
+    assert int(want[2][0]) == 0 and int(want[2].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_class_live_rows_reproduce_bit_for_bit(cuda):
+    p_over_cnt, cls, u = _class_case(cuda, 21, 262_144, seed=3, thinned=True)
+    _assert_same_rows(ck.class_live_rows_kernel(p_over_cnt, cls, 512, u),
+                      ck.class_live_rows_kernel(p_over_cnt, cls, 512, u))
+
+
+@pytest.mark.gpu
+def test_class_live_rows_no_host_sync(cuda):
+    """The batched compaction and K1/K2 over one class's row, forward and
+    backward, without a host synchronisation."""
+    p_over_cnt, cls, u = _class_case(cuda, 21, 50_000, seed=5, thinned=True)
+    a, r, _ = _case(cuda, 256, 256, 50_000, seed=5)
+    a = a.float().requires_grad_(True)
+    ck.class_live_rows(p_over_cnt, cls, 512, u)   # build and bind the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, wv, n_live = ck.class_live_rows(p_over_cnt, cls, 512, u)
+        s = ck.weighted_exp_softsum_live(a, r, idx[4], wv[4], n_live[4:5], 2.0)
+        torch.log(s).sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(a.grad).all()
+
+
+@pytest.mark.gpu
+def test_class_live_rows_refuses_bad_operands(cuda):
+    p_over_cnt, cls, u = _class_case(cuda, 5, 3_000, seed=7, thinned=True)
+    with pytest.raises(TypeError):
+        ck.class_live_rows_kernel(p_over_cnt, cls.long(), 512, u)
+    with pytest.raises(TypeError):
+        ck.class_live_rows_kernel(p_over_cnt[:, :5].contiguous(), cls, 512, u)
+    with pytest.raises(TypeError):
+        ck.class_live_rows_kernel(p_over_cnt, cls, 512, u[:, :100].contiguous())
+    with pytest.raises(ValueError):
+        ck.class_live_rows_kernel(p_over_cnt, cls, 512, u.t().contiguous().t())
+    with pytest.raises(ValueError):
+        ck.class_live_rows_kernel(p_over_cnt, cls.cpu(), 512, u)
+    with pytest.raises(ValueError):
+        ck.class_live_rows_kernel(torch.zeros(128, 129, device=cuda), cls, 512)
+    with pytest.raises(ValueError):
+        ck.class_live_rows_kernel(p_over_cnt, torch.zeros(ck.CLASS_MAX_ROWS + 1,
+                                                          dtype=torch.int32, device=cuda), 512)
+
+
+@pytest.mark.gpu
+def test_class_live_rows_launch_on_their_tensors_device(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: the tensors' device must differ from the current one")
+    other = torch.device("cuda:1")
+    p_over_cnt, cls, u = _class_case(other, 21, 100_000, seed=9, thinned=True)
+    with torch.cuda.device(0):
+        got = ck.class_live_rows_kernel(p_over_cnt, cls, 512, u)
+    torch.cuda.synchronize(other)
+    assert all(t.device == other for t in got)
+    _assert_same_rows(got, ck.class_live_rows_plain(p_over_cnt, cls, 512, u))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sampled_pallas", "expected_pallas"])
+def test_loss_through_class_live_rows_equals_per_class_path(cuda, mode):
+    """The contrastive loss, its prototypes and its gradient on the card:
+    through ``class_live_rows`` against K1/K2 fed each class's weights as
+    the loss built them before (``weighted_exp_softsum_stochastic`` or
+    ``weighted_exp_softsum``), bit for bit: the compactions are equal, so is
+    the rest."""
+    from css_tpu_torch.losses import contrastive as con
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    b, h, w, c, q, d = 4, 32, 32, 21, 256, 256
+    n = b * h * w
+    onehot = torch.nn.functional.one_hot(torch.randint(0, c, (b, h, w), generator=g), c)
+    inputs = [torch.randn(b, h, w, d, generator=g), onehot.float(),
+              (torch.rand(b, h, w, generator=g) < 0.8).float(),
+              torch.softmax(3 * torch.randn(b, h, w, c, generator=g), dim=-1),
+              torch.randn(c, d, generator=g)]
+    draws = dict(tie=torch.randint(0, 1 << 24, (n,), generator=g, dtype=torch.int32),
+                 u1=torch.rand(c, q, generator=g))
+    if mode == "sampled_pallas":
+        draws["u"] = torch.rand(c, n, generator=g)
+    inputs = [x.to(cuda) for x in inputs]
+    draws = {k: v.to(cuda) for k, v in draws.items()}
+    out = []
+    for per_class in (False, True):
+        real = con.class_live_rows, con.weighted_exp_softsum_live
+        seen = []
+
+        def recording(p_over_cnt, masked_cls, g_, u=None):
+            seen.append((p_over_cnt, masked_cls.long(), g_, u))
+            return real[0](p_over_cnt, masked_cls, g_, u)
+
+        def one_class(a, r, idx, wv, n_live, inv_temp):
+            p_over_cnt, masked_cls, g_, u = seen[0]
+            k = len(seen) - 1
+            seen.append(k)
+            w_k = p_over_cnt[k][masked_cls]
+            if u is None:
+                return ck.weighted_exp_softsum(a, r, w_k, inv_temp)
+            return ck.weighted_exp_softsum_stochastic(a, r, g_ * w_k, inv_temp, u[k])
+        if per_class:
+            con.class_live_rows, con.weighted_exp_softsum_live = recording, one_class
+        try:
+            ck.reset_launches()
+            x = inputs[0].detach().requires_grad_(True)
+            loss, protos = con.prototype_contrastive_loss(x, *inputs[1:], **draws,
+                                                          negative_mode=mode)
+            loss.backward()
+            launches = dict(ck.LAUNCHES)
+        finally:
+            con.class_live_rows, con.weighted_exp_softsum_live = real
+        want = ({"class_live_rows": 1, "live_rows_compact": c} if per_class
+                else {"class_live_rows": 1, "live_rows_compact": 0})
+        assert launches == dict(want, weighted_exp_softsum_fwd=c, weighted_exp_softsum_bwd=c)
+        out.append((loss.detach(), protos, x.grad))
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
