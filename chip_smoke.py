@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives css_tpu_torch's main path on one NVIDIA GPU and checks it.
 
-    python3 chip_smoke.py [--steps N] [--profile]
+    python3 chip_smoke.py [--steps N]
 
 Phases, in order; any failure ends the run with a traceback and a non-zero
 exit code, and no result line.  Launch counts: every step runs the
@@ -668,13 +668,11 @@ def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: st
     return ms, peak, launches
 
 
-def _class_path_pairs(torch, ck, one_step, steps: int, c: int, label: str,
-                      profile: bool = False):
+def _class_path_pairs(torch, ck, one_step, steps: int, c: int, label: str):
     """The step through ``class_live_rows`` and on the per-class path it
     replaced (``_PerClassPath``), ``steps`` timed steps a block, in turns:
     batched, per-class, per-class, batched, twice; each block's launches
-    checked.  Prints each block's ms/step and the ratio of the sums; with
-    ``profile``, one more step on each path under ``profile_step``."""
+    checked.  Prints each block's ms/step and the ratio of the sums."""
     ms = {"batched": [], "per_class": []}
     for path in ("batched", "per_class", "per_class", "batched") * 2:
         torch.cuda.synchronize()
@@ -697,10 +695,6 @@ def _class_path_pairs(torch, ck, one_step, steps: int, c: int, label: str,
           f"(batched, per-class, per-class, batched, twice): batched {json.dumps(ms['batched'])} "
           f"ms/step, per-class {json.dumps(ms['per_class'])} ms/step; batched / per-class "
           f"{ratio:.4f}", flush=True)
-    if profile:
-        profile_step(torch, one_step, f"{label} batched profile")
-        with _PerClassPath():
-            profile_step(torch, one_step, f"{label} per-class profile")
     return ratio
 
 
@@ -717,7 +711,7 @@ def _voc_batch(torch, bsz: int, crop: int, c: int):
     return {k: v.cuda() for k, v in batch.items()}
 
 
-def train_phase(torch, ck, steps: int, profile: bool):
+def train_phase(torch, ck, steps: int):
     from css_tpu_torch.models.deeplabv3 import build_model
     from css_tpu_torch.train.draws import sample_step_draws
     from css_tpu_torch.train.state import create_train_state
@@ -742,13 +736,11 @@ def train_phase(torch, ck, steps: int, profile: bool):
     if peak_gib > PEAK_GIB_LIMIT:
         raise RuntimeError(f"peak memory {peak_gib:.3f} GiB exceeds {PEAK_GIB_LIMIT} GiB")
     print(f"train: {2 * bsz * 1e3 / ms:.3f} img/s", flush=True)
-    _class_path_pairs(torch, ck, one_step, steps, c, "train", profile)
-    if profile:
-        profile_step(torch, one_step)
+    _class_path_pairs(torch, ck, one_step, steps, c, "train")
     return launches, dict(state=state, batch=batch, g=g, ms=ms)
 
 
-def strategies_phase(torch, ck, train, steps: int, profile: bool):
+def strategies_phase(torch, ck, train, steps: int):
     """Full-size ``mix`` and ``cross`` steps, continuing the train phase's
     state (its prototypes are real), with the thresholds of their entry
     points; then a ``cross`` run through its entry point that switches to
@@ -808,8 +800,6 @@ def strategies_phase(torch, ck, train, steps: int, profile: bool):
               f"({ms[strategy] / train['ms']:.4f}x); unlabeled pixels with a label / valid "
               f"{share[0]}/{share[1]} = {share[0] / share[1]:.4f}; launches "
               f"{json.dumps(launches)}", flush=True)
-        if profile:
-            profile_step(torch, lambda: one_step(strategy == "cross"), f"{strategy} profile")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if peak_gib > STRATEGIES_PEAK_GIB_LIMIT:
         raise RuntimeError(f"strategies: peak memory {peak_gib:.3f} GiB exceeds "
@@ -867,15 +857,12 @@ class _DriverProbe:
     attributes of ``css_tpu_torch.cli.train_main``) to observe one run:
     each step's losses and device end time, the state the first step
     receives, each eval batch's matrix update beside its count of valid
-    label pixels, and eval and checkpoint times; with
-    ``profile_step_index``, that step (counted over both runs from 0) runs
-    under ``profile_step``."""
+    label pixels, and eval and checkpoint times."""
 
     NAMES = ("make_train_step", "make_eval_step", "_evaluate", "save_checkpoint")
 
-    def __init__(self, torch, train_main, profile_step_index=None):
+    def __init__(self, torch, train_main):
         self.torch, self.module = torch, train_main
-        self.profile_step_index = profile_step_index
         self.orig = {name: getattr(train_main, name) for name in self.NAMES}
         self.losses, self.evals, self.saves, self.step_args = [], [], [], []
         self.new_run()
@@ -900,13 +887,7 @@ class _DriverProbe:
                 self.start = (state.step, state.prototypes.clone())
             self.step_at.append(time.perf_counter())
             self.step_args.append(args)
-            if len(self.losses) == self.profile_step_index:
-                out = []
-                profile_step(self.torch, lambda: out.append(step(state, batch, draws, *args)),
-                             "driver profile")
-                state, metrics = out[0]
-            else:
-                state, metrics = step(state, batch, draws, *args)
+            state, metrics = step(state, batch, draws, *args)
             self.losses.append(metrics)
             end = self.torch.cuda.Event(enable_timing=True)
             end.record()
@@ -972,13 +953,10 @@ def _loader_ms_per_batch(batches: int = 6) -> float:
         loader.close()
 
 
-def driver_phase(torch, ck, smi: str, profile: bool, keep_checkpoint: str):
+def driver_phase(torch, ck, smi: str, keep_checkpoint: str):
     """Runs A (4 steps + eval) and B (resumed, steps 5-6 + eval) through the
-    port's entry point and checks them; see the module docstring.  With
-    ``profile``, run A's third step is profiled (the device drained first);
-    the driver's step times then include that step, so read them from a run
-    without ``--profile``.  Run B's ``last_model`` is copied to
-    ``keep_checkpoint`` for the opt-in phase."""
+    port's entry point and checks them; see the module docstring.  Run B's
+    ``last_model`` is copied to ``keep_checkpoint`` for the opt-in phase."""
     from css_tpu_torch.cli import entries, train_main
     from css_tpu_torch.config import CONFIG_DIR
 
@@ -991,7 +969,7 @@ def driver_phase(torch, ck, smi: str, profile: bool, keep_checkpoint: str):
     try:
         os.chdir(workdir)   # the YAML's save_dir, ./checkpoints/, lands here
         last = os.path.join(workdir, "checkpoints", "smoke", "last_model")
-        with _DriverProbe(torch, train_main, 2 if profile else None) as probe:
+        with _DriverProbe(torch, train_main) as probe:
             ck.reset_launches()
             for run, extra in (("A", ["--total_iter", "4", "--max_steps", "4"]),
                                ("B", ["--resume", last, "--total_iter", "8", "--max_steps", "6"])):
@@ -1346,7 +1324,7 @@ def _ohem_on_card(torch, shape, c: int, min_kept: int):
           flush=True)
 
 
-def cityscapes_phase(torch, ck, smi: str, steps: int, profile: bool):
+def cityscapes_phase(torch, ck, smi: str, steps: int):
     """The shipped Cityscapes recipe: fused and two-pass steps, a ``mix``
     step, a deep-stem remat step, OHEM alone, and the entry point; see the
     module docstring.  Returns the fused steps' launches."""
@@ -1402,7 +1380,7 @@ def cityscapes_phase(torch, ck, smi: str, steps: int, profile: bool):
     if peak > CITY_PEAK_GIB_LIMIT:
         raise RuntimeError(f"cityscapes: peak memory {peak:.3f} GiB exceeds "
                            f"{CITY_PEAK_GIB_LIMIT} GiB")
-    _class_path_pairs(torch, ck, fused, steps, c, "cityscapes fused", profile)
+    _class_path_pairs(torch, ck, fused, steps, c, "cityscapes fused")
     labeled = bsz * step_cfg.crop_hw[0] * step_cfg.crop_hw[1]
     print(f"cityscapes ({smi}): {ms_fused:.3f} ms/step, {2 * bsz * 1e3 / ms_fused:.3f} img/s, "
           f"peak memory {peak:.3f} GiB (limit {CITY_PEAK_GIB_LIMIT}); OHEM kept "
@@ -1416,9 +1394,6 @@ def cityscapes_phase(torch, ck, smi: str, steps: int, profile: bool):
     print(f"cityscapes fused {ms_fused:.3f} ms/step vs two-pass {ms_two:.3f} ms/step: "
           f"fused / two-pass {ms_fused / ms_two:.4f}; peaks {peak:.3f} / {peak_two:.3f} GiB",
           flush=True)
-    if profile:
-        profile_step(torch, fused, "cityscapes fused profile")
-        profile_step(torch, two_pass, "cityscapes two-pass profile")
 
     # the mix entry point's thresholds (strong 0.8, weak 0.7, unsupervised 0.97)
     mix_cfg = dataclasses.replace(step_cfg, strategy="mix", strong_threshold=0.8,
@@ -1488,7 +1463,7 @@ def _grad_norm(torch, module) -> float:
         [p.grad.norm() for p in module.parameters() if p.grad is not None])).item()
 
 
-def _world_one(torch, ck, smi: str, steps: int, train_ms: float, profile: bool):
+def _world_one(torch, ck, smi: str, steps: int, train_ms: float):
     """Part 1 of the distributed phase, inside a 1-rank NCCL group."""
     import copy
     import dataclasses
@@ -1553,8 +1528,6 @@ def _world_one(torch, ck, smi: str, steps: int, train_ms: float, profile: bool):
     ms, peak, launches = _timed_steps(torch, ck, one_step, 1, steps, c, "distributed world 1")
     print(f"distributed world 1 (NCCL, {smi}): {ms:.3f} ms/step vs the train phase's bare step "
           f"{train_ms:.3f} ms/step ({ms / train_ms:.4f}x), peak memory {peak:.3f} GiB", flush=True)
-    if profile:
-        profile_step(torch, one_step, "distributed world 1 profile")
 
     # the unsupervised loss's gradient path: every pixel passes at threshold 0
     thr_draws = draws()
@@ -1692,7 +1665,7 @@ def _elastic_resume(torch, workdir: str, last: str):
           f"{start_step} with the saved prototypes (bit-equal), {json.dumps(result)}", flush=True)
 
 
-def distributed_phase(torch, ck, smi: str, steps: int, train_ms: float, profile: bool):
+def distributed_phase(torch, ck, smi: str, steps: int, train_ms: float):
     """Data parallelism: a 1-rank NCCL group at the VOC width, two ranks
     through the driver's launcher, and a resume at another world size; see
     the module docstring.  Returns (the world-1 launches, each rank's)."""
@@ -1703,7 +1676,7 @@ def distributed_phase(torch, ck, smi: str, steps: int, train_ms: float, profile:
             "nccl", init_method="file://" + os.path.join(workdir, "rendezvous"), rank=0,
             world_size=1)
         try:
-            launches = _world_one(torch, ck, smi, steps, train_ms, profile)
+            launches = _world_one(torch, ck, smi, steps, train_ms)
         finally:
             torch.distributed.destroy_process_group()
         _free(torch)
@@ -2462,66 +2435,9 @@ def _rendezvous_check(torch):
           f"group on {device} and all-reduced, {seconds:.3f} s", flush=True)
 
 
-_CATEGORIES = (   # first match wins, on the lower-cased kernel name
-    ("collectives (NCCL)", ("nccl",)),
-    ("contrastive K1/K2 + compaction",
-     ("k1_live", "k2_live", "sum_partials", "count_live", "scatter_live")),
-    ("convolution", ("conv", "wgrad", "dgrad", "xmma", "cudnn", "nhwc", "nchw")),
-    ("matmul", ("gemm", "cutlass", "sm90")),
-    ("elementwise", ("elementwise", "vectorized")),
-    ("reduction", ("reduce",)),
-)
-
-
-def profile_step(torch, one_step, label: str = "profile"):
-    """One more step under torch.profiler, the device idle when it starts:
-    device time by kernel category, the top kernels, and the device's idle
-    share of the step's wall time (the profiler's own host overhead
-    inflates the wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    intervals = []
-    for e in p.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        intervals.append((start, end))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start)
-    busy, last = 0.0, float("-inf")
-    for start, end in sorted(intervals):
-        if end > last:
-            busy += end - max(start, last)
-            last = end
-    by_cat = {}
-    for name, us in by_name.items():
-        low = name.lower()
-        cat = next((c for c, keys in _CATEGORIES if any(k in low for k in keys)), "other")
-        by_cat[cat] = by_cat.get(cat, 0.0) + us
-    total = sum(by_name.values())
-    print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
-          f"{1 - busy / wall_us:.4f}, kernels {len(intervals)}", flush=True)
-    for cat, _ in _CATEGORIES:   # every category, 0 where none ran (NCCL at world size 1)
-        by_cat.setdefault(cat, 0.0)
-    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"{label} category {cat}: {us / 1e3:.3f} ms ({us / total:.4f})", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"{label} kernel {us / 1e3:9.3f} ms  {name[:110]}", flush=True)
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=3, help="timed train steps (>= 3)")
-    parser.add_argument("--profile", action="store_true",
-                        help="profile one more bare step (and one on the per-class path) "
-                             "and one driver step and print their kernel tables")
     args = parser.parse_args()
     if args.steps < 3:
         parser.error("--steps must be at least 3")
@@ -2557,10 +2473,10 @@ def main() -> int:
     kernels, city_kernels = kernel_phase(torch, ck)
     phase_done("kernels")
     contrastive_phase(torch, ck)
-    launches, train = train_phase(torch, ck, args.steps, args.profile)
+    launches, train = train_phase(torch, ck, args.steps)
     train_ms = train["ms"]
     phase_done("contrastive + train")
-    strategies_phase(torch, ck, train, args.steps, args.profile)
+    strategies_phase(torch, ck, train, args.steps)
     phase_done("strategies")
     dense_launches, dense_rows = optin_steps_phase(torch, ck, train, smi, args.steps)
     phase_done("opt-in steps")
@@ -2570,16 +2486,15 @@ def main() -> int:
     keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         checkpoint = os.path.join(keep, "driver_last_model")
-        driver_phase(torch, ck, smi, args.profile, checkpoint)
+        driver_phase(torch, ck, smi, checkpoint)
         phase_done("driver")
         optin_entry_phase(torch, smi, checkpoint)
         phase_done("opt-in entry points")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
-    city_launches = cityscapes_phase(torch, ck, smi, args.steps, args.profile)
+    city_launches = cityscapes_phase(torch, ck, smi, args.steps)
     phase_done("cityscapes")
-    dist_launches, rank_launches = distributed_phase(torch, ck, smi, args.steps, train_ms,
-                                                     args.profile)
+    dist_launches, rank_launches = distributed_phase(torch, ck, smi, args.steps, train_ms)
     phase_done("distributed")
     keep = tempfile.mkdtemp(prefix="chip_smoke_files_")
     try:

@@ -104,7 +104,7 @@ from css_tpu_torch.train.train_step import (STRATEGIES, StepConfig, make_eval_st
                                             make_train_step)
 from css_tpu_torch.utils import ConfusionMatrix, Logger, ScalarWriter
 from css_tpu_torch.utils.preempt import PreemptionGuard
-from css_tpu_torch.utils.profiling import StepTimer, maybe_profile
+from css_tpu_torch.utils.profiling import StepTimer, maybe_profile, per_step_line, reset, snapshot
 
 __all__ = ["run_training", "train_on", "add_common_args"]
 
@@ -617,7 +617,8 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
             train_l.set_epoch(epoch)
             weight = _contrast_weight(cfg, args, strategy, epoch)
             use_rep = strategy == "cross" and epoch >= warmup
-            with maybe_profile(args.profile_dir, epoch == start_epoch):
+            profiled = bool(args.profile_dir) and epoch == start_epoch
+            with maybe_profile(args.profile_dir, profiled):
                 batches = _device_prefetch(_epoch_batches(train_l, u_iter), device)
                 for si, batch in enumerate(batches):
                     def run(s, batch=batch, weight=weight, use_rep=use_rep):
@@ -640,6 +641,11 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
                     if guard.should_stop(si):
                         preempted = done = True
                         break
+            # the profiled epoch's spans (utils/profiling.py), a step, on its log line
+            spans = ""
+            if profiled:
+                spans = " " + per_step_line(snapshot())
+                reset()
 
             if preempted:
                 # skip eval; saved with this epoch so --resume replays it
@@ -652,7 +658,7 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
 
             if not (strategy == "ori" or epoch % 20 == 0 or epoch > total_epoch - 50 or done
                     or epoch == total_epoch - 1):
-                log.info(f"Epoch:{epoch} * Time {time.asctime()} {timer.summary()}")
+                log.info(f"Epoch:{epoch} * Time {time.asctime()} {timer.summary()}{spans}")
                 continue
             try:
                 miou = _evaluate(eval_step, test_loader, step_cfg.crop_hw, step_cfg.num_classes,
@@ -674,7 +680,8 @@ def train_on(device: torch.device, strategy: str, args) -> dict:
                                     "loss/contrast": m["contrast"]})
             log.info(f"Epoch:{epoch} * mIoU {miou:.4f} Best_mIoU {best_miou:.4f} "
                      f"loss {m['total']:.4f} (sup {m['sup']:.4f} unsup {m['unsup']:.4f} "
-                     f"contrast {m['contrast']:.4f}) {timer.summary()} Time {time.asctime()}")
+                     f"contrast {m['contrast']:.4f}) {timer.summary()} Time {time.asctime()}"
+                     f"{spans}")
             if rank == 0:
                 if miou >= best_miou:
                     save_checkpoint(os.path.join(save_dir, "best_model"), state, epoch + 1,

@@ -22,6 +22,8 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from css_tpu_torch.utils.profiling import span
+
 __all__ = ["BatchLoader", "InfiniteLoader"]
 
 
@@ -123,7 +125,8 @@ class BatchLoader:
         for _ in range(self.prefetch + 1):
             _submit_next()
         for idx in range(len(batches)):
-            batch = futures[idx].result()
+            with span("css.loader", device=False):     # the consumer waits for the pool
+                batch = futures[idx].result()
             _submit_next()
             yield batch
 

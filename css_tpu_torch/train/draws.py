@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from css_tpu_torch.losses.contrastive import NEGATIVE_MODES
+from css_tpu_torch.utils.profiling import span
 
 __all__ = ["AugmentDraws", "MixDraws", "ContrastDraws", "StepDraws", "NEGATIVE_MODES",
            "sample_augment_draws", "sample_mix_draws", "sample_contrast_draws",
@@ -144,12 +145,13 @@ def sample_step_draws(generator: torch.Generator, cfg, l_batch: int, u_batch: in
     strategies draw alike: ``mix`` and ``cross`` add only a deterministic
     teacher forward."""
     g = generator
-    return StepDraws(
-        l_aug=sample_augment_draws(g, l_batch, cfg.scale_range, True),
-        u_crop=sample_augment_draws(g, u_batch, (1.0, 1.0), False),
-        t_crop=sample_augment_draws(g, u_batch, cfg.scale_range, False),
-        u_aug=sample_augment_draws(g, u_batch, (1.0, 1.0), True),
-        mix=sample_mix_draws(g, cfg.mix_mode, u_batch, cfg.crop_hw[1], cfg.num_classes),
-        contrast=sample_contrast_draws(g, cfg.negative_mode, cfg.num_classes, cfg.num_queries,
-                                       cfg.num_negatives, rep_pixels),
-    )
+    with span("css.draws"):
+        return StepDraws(
+            l_aug=sample_augment_draws(g, l_batch, cfg.scale_range, True),
+            u_crop=sample_augment_draws(g, u_batch, (1.0, 1.0), False),
+            t_crop=sample_augment_draws(g, u_batch, cfg.scale_range, False),
+            u_aug=sample_augment_draws(g, u_batch, (1.0, 1.0), True),
+            mix=sample_mix_draws(g, cfg.mix_mode, u_batch, cfg.crop_hw[1], cfg.num_classes),
+            contrast=sample_contrast_draws(g, cfg.negative_mode, cfg.num_classes,
+                                           cfg.num_queries, cfg.num_negatives, rep_pixels),
+        )

@@ -55,8 +55,15 @@ draws, the model built with cross-replica BatchNorm.  Besides the BN
 statistics, the prototype sums and the mixing partners (``mix_partner``),
 it averages the gradients over the ranks after ``backward()`` (one
 all-reduce of one flat buffer, before the SGD update) and the four losses it
-returns.  Every rank issues the same collectives in the same order, and the
-step adds no host synchronisation.
+returns.  Every rank issues the same collectives in the same order, and
+they add no host synchronisation.
+
+The step's phases are spans of ``utils/profiling.py``, recorded only under
+``torch.profiler`` or ``tracing()``: ``css.step`` (the whole call),
+``css.augment`` (the labeled transform and the unlabeled base crop; then the
+unlabeled chain after the teacher), ``css.teacher``, ``css.student``,
+``css.losses``, ``css.backward`` (with the gradient mean) and ``css.update``
+(learning rate, SGD, EMA, prototypes).
 """
 
 from __future__ import annotations
@@ -80,6 +87,7 @@ from css_tpu_torch.ops.photometric import exact_div
 from css_tpu_torch.parallel.mesh import all_reduce_sum, mean_gradients, world_size
 from css_tpu_torch.train.draws import StepDraws
 from css_tpu_torch.train.state import TrainState, ema_update
+from css_tpu_torch.utils.profiling import span
 
 __all__ = ["StepConfig", "STRATEGIES", "SUP_LOSSES", "make_train_step", "make_eval_step",
            "make_sliding_eval_step", "window_probs", "eval_mode"]
@@ -192,16 +200,19 @@ def make_train_step(cfg: StepConfig):
                            draws: StepDraws):
         """No-grad teacher + the unlabeled augmentation chain; returns the
         normalized NHWC unlabeled batch, its labels and confidences."""
-        labels, confs = pseudo_labels(state, l_img, to_channel_last(normalize_imagenet(u_img01)))
-        full_hw = torch.tensor([ch, cw], device=u_img01.device).expand(u_img01.shape[0], 2)
-        img01, labels, confs = batch_transform(u_img01, labels, confs, full_hw, (ch, cw),
-                                               **draws.t_crop.as_kwargs(), quantize=quantize)
-        img01, labels, confs = mix_batch(img01, labels, confs, mode=cfg.mix_mode,
-                                         distributed=cfg.distributed, partner=cfg.mix_partner,
-                                         **draws.mix.as_kwargs())
-        img01, labels, confs = batch_transform(img01, labels, confs, full_hw, (ch, cw),
-                                               **draws.u_aug.as_kwargs(), quantize=quantize)
-        return to_channel_last(normalize_imagenet(img01)), labels, confs
+        with span("css.teacher"):
+            labels, confs = pseudo_labels(state, l_img,
+                                          to_channel_last(normalize_imagenet(u_img01)))
+        with span("css.augment"):
+            full_hw = torch.tensor([ch, cw], device=u_img01.device).expand(u_img01.shape[0], 2)
+            img01, labels, confs = batch_transform(u_img01, labels, confs, full_hw, (ch, cw),
+                                                   **draws.t_crop.as_kwargs(), quantize=quantize)
+            img01, labels, confs = mix_batch(img01, labels, confs, mode=cfg.mix_mode,
+                                             distributed=cfg.distributed,
+                                             partner=cfg.mix_partner, **draws.mix.as_kwargs())
+            img01, labels, confs = batch_transform(img01, labels, confs, full_hw, (ch, cw),
+                                                   **draws.u_aug.as_kwargs(), quantize=quantize)
+            return to_channel_last(normalize_imagenet(img01)), labels, confs
 
     rollback = _BufferRollback()
 
@@ -211,35 +222,38 @@ def make_train_step(cfg: StepConfig):
         if state.consumed:
             raise RuntimeError("train step: the state was consumed by a step that failed at or "
                                "after its update; copy a snapshot back before stepping it")
-        rollback.save(state)
-        try:
-            return attempt(state, batch, draws, contrast_weight, use_rep_labels)
-        except BaseException:
-            # before the commit: the buffers go back (a device that refuses the
-            # copy, after a sticky fault, leaves the state consumed); the fault
-            # itself propagates
-            if not state.consumed and not rollback.restore():
-                state.consumed = True
-            raise
+        with span("css.step"):
+            rollback.save(state)
+            try:
+                return attempt(state, batch, draws, contrast_weight, use_rep_labels)
+            except BaseException:
+                # before the commit: the buffers go back (a device that refuses
+                # the copy, after a sticky fault, leaves the state consumed); the
+                # fault itself propagates
+                if not state.consumed and not rollback.restore():
+                    state.consumed = True
+                raise
 
     def attempt(state, batch, draws, contrast_weight, use_rep_labels):
         model = state.model
         with torch.no_grad():
-            l_canvas = _to01_cf(batch["l_image"])
-            bl, _, lh, lw = l_canvas.shape
-            l_labels0 = _remap_ignore(batch["l_label"], c)[:, None]
-            l_img01, l_labels, _ = batch_transform(
-                l_canvas, l_labels0, l_canvas.new_zeros((bl, 1, lh, lw)),
-                batch["l_valid_hw"], (ch, cw), **draws.l_aug.as_kwargs(), quantize=quantize)
-            l_img = to_channel_last(normalize_imagenet(l_img01))
-            l_label = l_labels[:, 0]
+            with span("css.augment"):
+                l_canvas = _to01_cf(batch["l_image"])
+                bl, _, lh, lw = l_canvas.shape
+                l_labels0 = _remap_ignore(batch["l_label"], c)[:, None]
+                l_img01, l_labels, _ = batch_transform(
+                    l_canvas, l_labels0, l_canvas.new_zeros((bl, 1, lh, lw)),
+                    batch["l_valid_hw"], (ch, cw), **draws.l_aug.as_kwargs(), quantize=quantize)
+                l_img = to_channel_last(normalize_imagenet(l_img01))
+                l_label = l_labels[:, 0]
 
-            u_canvas = _to01_cf(batch["u_image"])
-            bu, _, uh, uw = u_canvas.shape
-            u_img01, _, _ = batch_transform(
-                u_canvas, torch.zeros((bu, 1, uh, uw), dtype=torch.long, device=u_canvas.device),
-                u_canvas.new_zeros((bu, 1, uh, uw)), batch["u_valid_hw"], (ch, cw),
-                **draws.u_crop.as_kwargs(), quantize=quantize)
+                u_canvas = _to01_cf(batch["u_image"])
+                bu, _, uh, uw = u_canvas.shape
+                u_img01, _, _ = batch_transform(
+                    u_canvas,
+                    torch.zeros((bu, 1, uh, uw), dtype=torch.long, device=u_canvas.device),
+                    u_canvas.new_zeros((bu, 1, uh, uw)), batch["u_valid_hw"], (ch, cw),
+                    **draws.u_crop.as_kwargs(), quantize=quantize)
             u_img, u_labels, u_confs = pseudo_label_phase(state, l_img, u_img01, draws)
         # cross switches the unsupervised target to the representation space;
         # the contrastive labels and the weak mask stay logit-space
@@ -248,60 +262,67 @@ def make_train_step(cfg: StepConfig):
         conf_cls = u_confs[:, 0]
 
         # per-half BN statistics, labeled first: two passes, or one grouped
-        model.train()
-        if cfg.fused_forward:
-            pred, rep = model(torch.cat([l_img, u_img]), bn_groups=2)
-            pred_l, pred_u, rep_l, rep_u = pred[:bl], pred[bl:], rep[:bl], rep[bl:]
-        else:
-            pred_l, rep_l = model(l_img)
-            pred_u, rep_u = model(u_img)
-        pred_l_large = bilinear_resize(pred_l, (ch, cw), align_corners=True)
-        pred_u_large = bilinear_resize(pred_u, (ch, cw), align_corners=True)
-        if cfg.sup_loss == "ohem":
-            sup = ohem_cross_entropy(pred_l_large, l_label, cfg.ohem_thresh,
-                                     cfg.ohem_min_kept_per_image * bl)
-        else:
-            sup = cross_entropy(pred_l_large, l_label)
-        unsup = attention_threshold_loss(pred_u_large, unsup_label, unsup_conf, cfg.un_threshold)
+        with span("css.student"):
+            model.train()
+            if cfg.fused_forward:
+                pred, rep = model(torch.cat([l_img, u_img]), bn_groups=2)
+                pred_l, pred_u, rep_l, rep_u = pred[:bl], pred[bl:], rep[:bl], rep[bl:]
+            else:
+                pred_l, rep_l = model(l_img)
+                pred_u, rep_u = model(u_img)
+        with span("css.losses"):
+            pred_l_large = bilinear_resize(pred_l, (ch, cw), align_corners=True)
+            pred_u_large = bilinear_resize(pred_u, (ch, cw), align_corners=True)
+            if cfg.sup_loss == "ohem":
+                sup = ohem_cross_entropy(pred_l_large, l_label, cfg.ohem_thresh,
+                                         cfg.ohem_min_kept_per_image * bl)
+            else:
+                sup = cross_entropy(pred_l_large, l_label)
+            unsup = attention_threshold_loss(pred_u_large, unsup_label, unsup_conf,
+                                             cfg.un_threshold)
 
-        if cfg.contrast_enabled:
-            # the model's output size (193 at 769, 129 at 512 under the deep stem)
-            hw = (pred_l.shape[1], pred_l.shape[2])
-            rows = (bl + bu) * hw[0] * hw[1]
-            if draws.contrast.tie.shape[0] != rows:
-                raise ValueError(f"contrastive draws sized for {draws.contrast.tie.shape[0]} "
-                                 f"rows; the model's {bl}+{bu} outputs at {hw} have {rows}")
-            mask_l = nearest_resize((l_label >= 0).float(), hw)
-            mask_u = nearest_resize((conf_cls >= cfg.weak_threshold).float(), hw)
-            onehot_u = label_onehot_ignore if cfg.strategy == "mix" else label_onehot
-            label_all = torch.cat([label_onehot(nearest_resize(l_label, hw), c),
-                                   onehot_u(nearest_resize(u_labels[:, 0], hw), c)])
-            rep_all = torch.cat([rep_l, rep_u])
-            if cfg.strategy == "ori":
-                prob_all = torch.softmax(torch.cat([pred_l, pred_u]).detach(), dim=-1)
-            else:   # the prototypes before this step's update
-                prob_all = torch.softmax(
-                    _rep_space_probs(rep_all.detach(), state.prototypes) / cfg.rep_temp, dim=-1)
-            contrast, new_protos = prototype_contrastive_loss(
-                rep_all, label_all, torch.cat([mask_l, mask_u]), prob_all, state.prototypes,
-                **draws.contrast.as_kwargs(), num_negatives=cfg.num_negatives, temp=cfg.temp,
-                strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha,
-                distributed=cfg.distributed, negative_mode=cfg.negative_mode)
-        else:
-            contrast, new_protos = sup.new_zeros(()), state.prototypes
-        total = sup + unsup + contrast * contrast_weight
+            if cfg.contrast_enabled:
+                # the model's output size (193 at 769, 129 at 512 under the deep stem)
+                hw = (pred_l.shape[1], pred_l.shape[2])
+                rows = (bl + bu) * hw[0] * hw[1]
+                if draws.contrast.tie.shape[0] != rows:
+                    raise ValueError(f"contrastive draws sized for {draws.contrast.tie.shape[0]} "
+                                     f"rows; the model's {bl}+{bu} outputs at {hw} have {rows}")
+                mask_l = nearest_resize((l_label >= 0).float(), hw)
+                mask_u = nearest_resize((conf_cls >= cfg.weak_threshold).float(), hw)
+                onehot_u = label_onehot_ignore if cfg.strategy == "mix" else label_onehot
+                label_all = torch.cat([label_onehot(nearest_resize(l_label, hw), c),
+                                       onehot_u(nearest_resize(u_labels[:, 0], hw), c)])
+                rep_all = torch.cat([rep_l, rep_u])
+                if cfg.strategy == "ori":
+                    prob_all = torch.softmax(torch.cat([pred_l, pred_u]).detach(), dim=-1)
+                else:   # the prototypes before this step's update
+                    prob_all = torch.softmax(
+                        _rep_space_probs(rep_all.detach(), state.prototypes) / cfg.rep_temp,
+                        dim=-1)
+                contrast, new_protos = prototype_contrastive_loss(
+                    rep_all, label_all, torch.cat([mask_l, mask_u]), prob_all, state.prototypes,
+                    **draws.contrast.as_kwargs(), num_negatives=cfg.num_negatives, temp=cfg.temp,
+                    strong_threshold=cfg.strong_threshold, alpha=cfg.proto_alpha,
+                    distributed=cfg.distributed, negative_mode=cfg.negative_mode)
+            else:
+                contrast, new_protos = sup.new_zeros(()), state.prototypes
+            total = sup + unsup + contrast * contrast_weight
 
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if cfg.distributed:
-            mean_gradients(model.parameters())
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.lr_schedule(state.step)
-        state.consumed = True       # the commit: from here on a fault leaves a half-updated state
-        state.optimizer.step()
-        ema_update(state.teacher, model, state.step, cfg.ema_alpha)
-        state.prototypes = new_protos.detach()
-        state.step += 1
+        with span("css.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            if cfg.distributed:
+                mean_gradients(model.parameters())
+        with span("css.update"):
+            for group in state.optimizer.param_groups:
+                group["lr"] = state.lr_schedule(state.step)
+            # the commit: from here on a fault leaves a half-updated state
+            state.consumed = True
+            state.optimizer.step()
+            ema_update(state.teacher, model, state.step, cfg.ema_alpha)
+            state.prototypes = new_protos.detach()
+            state.step += 1
         losses = (total, sup, unsup, contrast)
         if cfg.distributed:
             losses = (all_reduce_sum(torch.stack(losses).detach()) / world_size()).unbind()
