@@ -9,7 +9,13 @@ contrastive loss once, and a loss call launches ``class_live_rows`` (every
 class's compaction) once and K1 and K2 once per class, 21 times a VOC step
 and 19 a Cityscapes step, and the one-vector compaction ``live_rows_compact``
 never; "each kernel launched k times a step" below counts K1 and K2, with
-``class_live_rows`` once a step beside them.
+``class_live_rows`` once a step beside them.  Every block of timed steps
+(phases 5, 6, 6b, 9, 10 and 14) also counts its train-mode
+BatchNorm calls on the card (``_BnCalls``) and fails unless each launched the
+BatchNorm kernels: statistics and output once a call, the statistics' finish
+once more under ``distributed``, the two backward kernels once a call that
+builds a graph; the final line keeps each block's counts under
+``batchnorm_steps``.
 
 1. header: the card (``nvidia-smi``), torch and CUDA versions, TF32 flags;
 2. build: every CUDA source of the port, one ``nvcc`` each, all at once;
@@ -29,6 +35,22 @@ never; "each kernel launched k times a step" below counts K1 and K2, with
    timed beside its plain version, the per-class path it replaced (gather,
    thinning and ``compact_live_rows_kernel`` per class) and ``torch.nonzero``
    of the [C, N] weights;
+3b. batchnorm: the fused train-mode BatchNorm kernels (stats, apply,
+   grad_stats, grad_apply) at the main path's shapes (``BN_SHAPES``: VOC
+   layer3's conv2 and conv3 with the shortcut, Cityscapes' layer3 conv3 in
+   two groups, the ASPP pool in two groups, the decoder's 48-channel
+   projection; bf16), each held against its plain version on the same
+   inputs (at most one bf16 step apart in norm, the f32 sums to 1e-4); the
+   statistics kernel and the finish (``css_bn_finish``, the distributed
+   path's) also move copies of seeded running stats against the plain
+   versions' (to 1e-4), and the finish's statistics are held against the
+   plain finish's on the same sums; then
+   timed with the L2 flushed before each call beside its plain version and
+   the least time the card could take for its bytes; then the whole BN
+   (forward, and forward + backward through autograd) three ways: the
+   kernels, the module's own eager code, and ATen's ``F.batch_norm`` with
+   the add and the ReLU as the library yardstick, which the port never
+   calls;
 4. contrastive: the port's contrastive loss and its gradient at a small
    input on the card (through K1/K2) against the same call on the CPU
    (through the plain versions); then one full-size VOC loss (N = 262,144,
@@ -232,10 +254,17 @@ NUM_NEGATIVES = 512
 K1_RTOL = 1e-3                  # same bf16 products, f32 sums in another order
 K2_RTOL = 1e-2                  # plus K2's bf16 exp: one bf16 step (2^-8) may flip
 K2_ATOL_FRACTION = 1e-2         # of max |M|
-PEAK_GIB_LIMIT = 33.213         # the step's peak before the live-row compaction
-                                # (33.113 GiB) + 0.1 GiB for the saved compactions
-STRATEGIES_PEAK_GIB_LIMIT = 33.232   # the phase's first reading (33.132 GiB) + 0.1 GiB
-CITY_PEAK_GIB_LIMIT = 37.930    # the fused step's first reading (37.830 GiB) + 0.1 GiB
+PEAK_GIB_LIMIT = 18.135         # the step's peak with the fused BatchNorm (18.035 GiB)
+                                # + 0.1 GiB
+STRATEGIES_PEAK_GIB_LIMIT = 18.165   # the phase's reading with it (18.065 GiB) + 0.1 GiB
+CITY_PEAK_GIB_LIMIT = 20.688    # the fused step's reading with it (20.588 GiB) + 0.1 GiB
+BN_SHAPES = (   # (label, [N, C, H, W], groups, residual, relu): the main path's BNs
+    ("voc_layer3_conv2", (8, 256, 64, 64), 1, False, True),
+    ("voc_layer3_conv3", (8, 1024, 64, 64), 1, True, True),
+    ("city_layer3_conv3", (8, 1024, 97, 97), 2, True, True),
+    ("aspp_pool", (8, 256, 1, 1), 2, False, True),
+    ("projection_48", (8, 48, 128, 128), 1, False, True),
+)
 CITY_YAML = "CityScapes_config_baseline.yaml"
 VOC_YAML = "VOC_config_baseline.yaml"
 DIST_LOSS_RTOL = 1e-2           # world-1 NCCL step vs the plain step: cuDNN's picks may differ
@@ -265,6 +294,59 @@ def _check_launches(label: str, launches: dict, calls: int, c: int = 21) -> None
     want = _want_launches(calls, c)
     if launches != want:
         raise RuntimeError(f"{label}: launches {launches}, want {want}")
+
+
+BN_STEP_LAUNCHES = {}   # label -> the BN kernels' launches and calls of its timed steps
+
+
+class _BnCalls:
+    """Counts, inside, the train-mode ``GroupedBatchNorm`` calls on CUDA
+    tensors (a global forward pre-hook) beside the BN kernels' launches.
+    ``check`` fails unless there were calls and each launched the
+    statistics and the output kernel once, the finish once more where the BN
+    is ``distributed``, and, where it builds a graph, the two backward
+    kernels once: a remat recompute (``update_stats`` off) launches the
+    forward again, not the backward.  It keeps the launches, the calls and
+    ``fallback`` (calls less statistics launches: calls that took another
+    path) in ``BN_STEP_LAUNCHES[label]``."""
+
+    def __init__(self, torch):
+        from css_tpu_torch.models.resnet import GroupedBatchNorm
+        from css_tpu_torch.ops.kernels import batchnorm_kernels as bk
+
+        self.torch, self.bn_class, self.bk = torch, GroupedBatchNorm, bk
+        self.calls = self.distributed = self.graphs = 0
+
+    def _count(self, module, args):
+        if not (isinstance(module, self.bn_class) and module.training and args[0].is_cuda):
+            return
+        self.calls += 1
+        self.distributed += module.distributed
+        tensors = [a for a in args if isinstance(a, self.torch.Tensor)]
+        if self.torch.is_grad_enabled() and module.update_stats and any(
+                t.requires_grad for t in tensors + [module.weight, module.bias]):
+            self.graphs += 1
+
+    def __enter__(self):
+        self.bk.reset_launches()
+        self.handle = self.torch.nn.modules.module.register_module_forward_pre_hook(self._count)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+    def check(self, label: str) -> None:
+        launches = dict(self.bk.LAUNCHES)
+        want = {"css_bn_stats": self.calls, "css_bn_finish": self.distributed,
+                "css_bn_apply": self.calls, "css_bn_grad_stats": self.graphs,
+                "css_bn_grad_apply": self.graphs}
+        BN_STEP_LAUNCHES[label] = dict(launches, train_bn_calls=self.calls,
+                                       fallback=self.calls - launches["css_bn_stats"])
+        print(f"{label}: BatchNorm {json.dumps(BN_STEP_LAUNCHES[label])}", flush=True)
+        if launches != want or not self.calls:
+            raise RuntimeError(f"{label}: BatchNorm launches {launches} for {self.calls} "
+                               f"train-mode calls ({self.distributed} distributed, "
+                               f"{self.graphs} with a graph); want {want}")
 
 
 class _PerClassPath:
@@ -549,6 +631,124 @@ def _kernel_shape(torch, ck, g, flush, n: int, kinds):
     return results
 
 
+def _bn_eager(torch, bn, groups: int, residual: bool, relu: bool, library: bool):
+    """The whole BN as autograd runs it without the kernels: the module's
+    own code, or ATen's ``F.batch_norm`` a group (the yardstick)."""
+    import torch.nn.functional as F
+
+    def fn(x, res):
+        if library:
+            rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+            y = torch.cat([F.batch_norm(h, rm, rv, bn.weight, bn.bias, True, 0.1, bn.eps)
+                           for h in x.chunk(groups)])
+        else:
+            y = bn._normalize(x, groups)
+        if res is not None:
+            y = y + res
+        return F.relu(y) if relu else y
+    return fn
+
+
+def batchnorm_phase(torch) -> list:
+    """The BatchNorm kernels at ``BN_SHAPES``: checked against their plain
+    versions, timed beside them and their bounds; the whole BN three ways."""
+    import dataclasses
+
+    from css_tpu_torch.models.resnet import GroupedBatchNorm
+    from css_tpu_torch.ops.kernels import batchnorm_kernels as bk
+
+    flush = _l2_flush(torch)
+    rows = []
+    for label, shape, groups, residual, relu in BN_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+
+        def make(scale=1.0, shift=0.0):
+            t = torch.randn(shape, generator=g, device="cuda") * scale + shift
+            return t.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x, dy = make(1.5, 0.3), make()
+        res = make() if residual else None
+        bn = GroupedBatchNorm(shape[1]).cuda()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.uniform_(-0.5, 0.5, generator=g)
+            bn.running_mean.uniform_(-1.0, 1.0, generator=g)
+            bn.running_var.uniform_(0.5, 1.5, generator=g)
+        w, b = bn.weight.detach(), bn.bias.detach()
+        n = x.numel() // shape[1] // groups
+        fin = bk.Finish(n, bn.eps, bn.momentum, False, bn.running_mean, bn.running_var)
+
+        def moving():   # a Finish that moves copies of the running stats
+            return dataclasses.replace(fin, update=True, running_mean=bn.running_mean.clone(),
+                                       running_var=bn.running_var.clone())
+        moved = {way: (moving(), moving()) for way in ("kernel", "plain")}
+        sums_x, stat = bk.stats_kernel(x, groups, moved["kernel"][0])
+        stat_plain = bk.stats_plain(x, groups, moved["plain"][0])[1]
+        stat_finish = bk.finish_kernel(sums_x, moved["kernel"][1])
+        finish_plain = bk.finish_plain(sums_x, moved["plain"][1])
+        y = bk.apply_kernel(x, stat, w, b, groups, res, relu)
+        saved = y if relu else None
+        sums, dw, _ = bk.grad_stats_kernel(x, dy, saved, stat, groups)
+        dx, _ = bk.grad_apply_kernel(x, dy, saved, stat, w, sums, n, groups, residual)
+        torch.cuda.synchronize()
+        gaps = {   # each kernel's output against its plain version's, on the same inputs
+            "stat": (stat, stat_plain),
+            "finish_stat": (stat_finish, finish_plain),
+            "y": (y, bk.apply_plain(x, stat, w, b, groups, res, relu)),
+            "grad_sums": (sums, bk.grad_stats_plain(x, dy, saved, stat, groups)[0]),
+            "dx": (dx, bk.grad_apply_plain(x, dy, saved, stat, w, sums, n, groups, residual)[0]),
+        }
+        # the running stats each kernel moved (momentum, group 0 first, Bessel)
+        for i, kind in enumerate(("stats", "finish")):
+            k_fin, p_fin = moved["kernel"][i], moved["plain"][i]
+            gaps[f"{kind}_running_mean"] = (k_fin.running_mean, p_fin.running_mean)
+            gaps[f"{kind}_running_var"] = (k_fin.running_var, p_fin.running_var)
+        gaps = {k: ((a.double() - p.double()).norm() / p.double().norm()).item()
+                for k, (a, p) in gaps.items()}
+        if max(gaps["y"], gaps["dx"]) > 2.0 ** -8 or max(
+                v for k, v in gaps.items() if k not in ("y", "dx")) > 1e-4:
+            raise RuntimeError(f"batchnorm {label}: kernels against plain {gaps}")
+        pass_bytes = 2 * x.numel()          # one bf16 pass over [M, C]
+        kernels = {   # (kernel, plain version, least bytes: inputs read once, outputs written)
+            "css_bn_stats": (lambda: bk.stats_kernel(x, groups, fin),
+                             lambda: bk.stats_plain(x, groups, fin), 1),
+            "css_bn_apply": (lambda: bk.apply_kernel(x, stat, w, b, groups, res, relu),
+                             lambda: bk.apply_plain(x, stat, w, b, groups, res, relu),
+                             2 + residual),
+            "css_bn_grad_stats": (lambda: bk.grad_stats_kernel(x, dy, saved, stat, groups),
+                                  lambda: bk.grad_stats_plain(x, dy, saved, stat, groups),
+                                  2 + relu),
+            "css_bn_grad_apply": (
+                lambda: bk.grad_apply_kernel(x, dy, saved, stat, w, sums, n, groups, residual),
+                lambda: bk.grad_apply_plain(x, dy, saved, stat, w, sums, n, groups, residual),
+                3 + relu + residual),
+        }
+        row = dict(label=label, shape=list(shape), groups=groups, residual=residual,
+                   relu=relu, gaps=gaps)
+        for name, (kern, plain, passes) in kernels.items():
+            ms, device_ms = _timed(torch, kern, 20, flush, name)
+            row[name] = dict(ms=ms, device_ms=device_ms,
+                             bound_ms=passes * pass_bytes / HBM_BYTES_PER_S * 1e3,
+                             plain_ms=_timed(torch, plain, 5, flush)[0])
+        # the whole BN, forward and forward + backward, the kernels and two eager ways
+        ways = {"kernels": lambda xi, ri: bn.fused_train(xi, groups, ri, relu),
+                "module": _bn_eager(torch, bn, groups, residual, relu, library=False),
+                "library": _bn_eager(torch, bn, groups, residual, relu, library=True)}
+        xg = x.detach().requires_grad_(True)
+        rg = None if res is None else res.detach().requires_grad_(True)
+        wrt = [xg, bn.weight, bn.bias] + ([rg] if residual else [])
+        for way, fn in ways.items():
+            row[way] = dict(
+                forward_ms=_timed(torch, lambda: fn(x, res), 10, flush)[0],
+                forward_backward_ms=_timed(
+                    torch, lambda: torch.autograd.grad(fn(xg, rg), wrt, dy), 10, flush)[0])
+        print(f"batchnorm {label}: " + json.dumps(row), flush=True)
+        rows.append(row)
+        del x, dy, res, y, saved, sums, dw, dx, stat, xg, rg, sums_x, moved, stat_plain, \
+            stat_finish, finish_plain
+        torch.cuda.empty_cache()
+    return rows
+
+
 def contrastive_phase(torch, ck):
     """The contrastive loss on the card (K1/K2) against the CPU (plain) at a
     small input; then one full-size VOC loss through ``class_live_rows``
@@ -641,20 +841,23 @@ def _check_finite(losses, label: str):
 def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: str):
     """``warmup`` untimed steps, then ``steps`` timed ones with the launch
     counters zeroed and the peak reset just before; fails on a non-finite
-    loss or launches other than one contrastive loss over ``c`` classes a
-    step (``_want_launches``; ``c`` 0: a path that runs no kernel).  Returns
-    (ms per step, peak GiB, launches)."""
+    loss, launches other than one contrastive loss over ``c`` classes a
+    step (``_want_launches``; ``c`` 0: a path that runs no kernel), or a
+    train-mode BN that missed the BatchNorm kernels (``_BnCalls``).  Returns
+    (ms per step, peak GiB, contrastive launches)."""
     for _ in range(warmup):
         one_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
     losses, times = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(one_step())
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    with _BnCalls(torch) as bn_calls:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(one_step())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    bn_calls.check(label)
     launches = dict(ck.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [{k: v.item() for k, v in m.items()} for m in losses]
@@ -780,13 +983,15 @@ def strategies_phase(torch, ck, train, steps: int):
         ts.mix_batch = recording_mix
         losses, times = [], []
         try:
-            for _ in range(steps):
-                t0 = time.perf_counter()
-                losses.append(one_step(strategy == "cross"))
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
+            with _BnCalls(torch) as bn_calls:
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    losses.append(one_step(strategy == "cross"))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
         finally:
             ts.mix_batch = real_mix
+        bn_calls.check(strategy)
         launches = dict(ck.LAUNCHES)
         losses = [{k: v.item() for k, v in m.items()} for m in losses]
         for i, m in enumerate(losses):
@@ -2472,6 +2677,8 @@ def main() -> int:
 
     kernels, city_kernels = kernel_phase(torch, ck)
     phase_done("kernels")
+    batchnorm = batchnorm_phase(torch)
+    phase_done("batchnorm")
     contrastive_phase(torch, ck)
     launches, train = train_phase(torch, ck, args.steps)
     train_ms = train["ms"]
@@ -2536,7 +2743,7 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda", source=source, replaces=f"{tpu}:{line_no}",
                          launches=launches[name], **kernels[key], cityscapes=city,
                          distributed=dist, expected_pallas=dense, **paths))
-    line = {"kernels": rows}
+    line = {"kernels": rows, "batchnorm": batchnorm, "batchnorm_steps": BN_STEP_LAUNCHES}
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

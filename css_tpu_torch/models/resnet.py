@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from css_tpu_torch.ops.kernels import batchnorm_kernels as bn_kernels
 from css_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = ["GroupedBatchNorm", "ConvBN", "Bottleneck", "StageSpec", "ResNetBackbone",
@@ -44,20 +45,28 @@ class GroupedBatchNorm(nn.Module):
     """BatchNorm with the reference's numerics, statistics per batch group.
 
     Train mode: the leading axis splits into ``groups`` equal groups; each
-    takes its statistics in f32 (variance as E[x^2] - E[x]^2) and is
-    normalized by them in the input dtype with f32-folded scalars.  The
-    running stats then move with momentum 0.9 once per group, group 0 first,
-    each time with torch's unbiased n/(n-1) variance, n = (B/G)·H·W (B/G for
-    the ASPP pool BN).  Eval mode normalizes with the running stats, again in
-    the input dtype.  ``update_stats`` False (while a checkpointed block is
-    recomputed) leaves the running stats as they are.
+    takes its statistics in f32 (variance as E[x^2] - E[x]^2).  The running
+    stats then move with momentum 0.9 once per group, group 0 first, each
+    time with torch's unbiased n/(n-1) variance, n = (B/G)·H·W (B/G for the
+    ASPP pool BN).  ``update_stats`` False (while a checkpointed block is
+    recomputed) leaves the running stats as they are.  Eval mode normalizes
+    with the running stats in the input dtype.
 
-    ``distributed`` True (``build_model(distributed=True)``): each group's
-    f32 mean and E[x^2], stacked [2, G, C], go through one differentiable
-    all-reduce over the default process group and are divided by the world
-    size before the variance is formed, and the Bessel n counts every
-    replica, as the JAX module's ``axis_name`` does.  The module holds a
-    flag, not a process group, so a deep copy (the teacher) keeps it.
+    On a CUDA tensor train mode runs :meth:`fused_train`: the
+    ``batchnorm_kernels`` normalize in f32 with the add and the ReLU that
+    follow, and round the output once to the input dtype.  Elsewhere
+    :meth:`_normalize` normalizes in the input dtype with f32-folded scalars
+    and the add and the ReLU follow in that dtype, as the reference does.
+
+    ``distributed`` True (``build_model(distributed=True)``): the statistics
+    count every replica, as the JAX module's ``axis_name`` does: n counts
+    every replica's rows, and the sums go through ``all_reduce_sum`` over
+    the default process group.  On the card the fused path reduces the
+    stacked [2, G, C] f32 sums of x and x^2 in the forward and those of the
+    gradient in the backward, one all-reduce each; elsewhere the module
+    reduces each group's f32 mean and E[x^2] through one differentiable
+    all-reduce and divides by the world size.  The module holds a flag, not
+    a process group, so a deep copy (the teacher) keeps it.
     """
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
@@ -73,7 +82,32 @@ class GroupedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1, residual=None,
+                relu: bool = False) -> torch.Tensor:
+        """BN(x), then ``+ residual`` and a ReLU where given (a bottleneck's
+        tail, a conv's activation).  Train mode on a CUDA tensor runs them as
+        one fused pass after the statistics' (:meth:`fused_train`); elsewhere
+        the add and the ReLU follow the BN's output in its dtype."""
+        if self.training and x.is_cuda:
+            return self.fused_train(x, groups, residual, relu)
+        y = self._normalize(x, groups)
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
+
+    def fused_train(self, x: torch.Tensor, groups: int = 1, residual=None,
+                    relu: bool = False) -> torch.Tensor:
+        """Train mode through ``batchnorm_kernels.batch_norm_train``: the
+        kernels on a CUDA tensor, their plain versions on the CPU."""
+        n = x.numel() // self.weight.shape[0] // groups
+        if self.distributed:
+            n *= torch.distributed.get_world_size()
+        fin = bn_kernels.Finish(n, self.eps, self.momentum, self.update_stats,
+                                self.running_mean, self.running_var)
+        return bn_kernels.batch_norm_train(x, self.weight, self.bias, fin, groups, residual,
+                                           relu, self.distributed)
+
+    def _normalize(self, x: torch.Tensor, groups: int) -> torch.Tensor:
         dtype = x.dtype
         if not self.training:
             inv = (self.weight * torch.rsqrt(self.running_var + self.eps)).to(dtype)
@@ -142,13 +176,11 @@ class ConvBN(nn.Module):
         nn.init.kaiming_normal_(self.conv.weight, mode="fan_out", nonlinearity="relu")
         self.bn = GroupedBatchNorm(out_ch, zero_init_scale=zero_init_scale)
 
-    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1, residual=None) -> torch.Tensor:
+        """``residual`` is added after the BN, before the ReLU."""
         x = F.conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype), None,
                      self.stride, self.padding, self.dilation)
-        x = self.bn(x, groups)
-        if self.relu:
-            x = F.relu(x)
-        return x.to(self.dtype)
+        return self.bn(x, groups, residual, self.relu).to(self.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -164,7 +196,7 @@ class Bottleneck(nn.Module):
         kw = dict(dtype=dtype)
         self.conv1 = ConvBN(in_ch, planes, 1, 1, 1, relu=True, **kw)
         self.conv2 = ConvBN(planes, planes, 3, stride, dilation, relu=True, **kw)
-        self.conv3 = ConvBN(planes, planes * 4, 1, 1, 1, relu=False,
+        self.conv3 = ConvBN(planes, planes * 4, 1, 1, 1, relu=True,     # after the add
                             zero_init_scale=zero_init_residual, **kw)
         self.downsample = (ConvBN(in_ch, planes * 4, 1, stride, 1, relu=False, **kw)
                            if has_downsample else None)
@@ -173,9 +205,8 @@ class Bottleneck(nn.Module):
         return self.conv2(self.conv1(x, groups), groups)
 
     def tail(self, mid: torch.Tensor, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
-        out = self.conv3(mid, groups)
         identity = self.downsample(x, groups) if self.downsample is not None else x
-        return F.relu(out + identity)
+        return self.conv3(mid, groups, identity)
 
     def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         return self.tail(self.head(x, groups), x, groups)

@@ -8,7 +8,9 @@ shared object (no PyTorch headers, so a build takes seconds) bound with
 ``build/css_tpu_torch/`` at the root of the checkout; the file name carries a
 hash of the source and the command's flags, so an edited source is rebuilt
 and a stale library is never loaded.  :func:`build_all` starts one compiler
-per library at once.
+per library at once, and so does the first :func:`load_library` of a CUDA
+source for every source of ``SOURCES`` not yet built: the first use pays one
+build's time, not one for each library.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "css_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("contrastive_kernels.cu",)   # every CUDA source of the port
+SOURCES = ("contrastive_kernels.cu", "batchnorm_kernels.cu")   # every CUDA source of the port
 HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 HOST_LIBS = ("-ljpeg", "-lpng", "-lz")
 
@@ -96,21 +98,27 @@ def _finish(source: str, lib: Path, proc, tmp) -> None:
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
 
 
-def build_all(sources: Iterable[str]) -> List[Path]:
-    """Builds every source at once, one nvcc each; returns the libraries."""
-    sources = list(sources)
-    with _lock:
-        started = [(s, *_start(s)) for s in sources]
-        for source, lib, proc, tmp in started:
-            _finish(source, lib, proc, tmp)
+def _build(sources: List[str]) -> List[Path]:
+    """Builds every source at once, one compiler each (the caller holds
+    ``_lock``); returns the libraries."""
+    started = [(s, *_start(s)) for s in sources]
+    for source, lib, proc, tmp in started:
+        _finish(source, lib, proc, tmp)
     return [lib for _, lib, _, _ in started]
 
 
+def build_all(sources: Iterable[str]) -> List[Path]:
+    """Builds every source at once, one nvcc each; returns the libraries."""
+    with _lock:
+        return _build(list(sources))
+
+
 def load_library(source: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<source>``, built if needed."""
+    """The loaded library built from ``csrc/<source>``, built if needed
+    (with the other CUDA sources, for a source of ``SOURCES``)."""
     with _lock:
         if source not in _loaded:
-            lib, proc, tmp = _start(source)
-            _finish(source, lib, proc, tmp)
-            _loaded[source] = ctypes.CDLL(str(lib))
+            together = list(SOURCES) if source in SOURCES else [source]
+            libs = dict(zip(together, _build(together)))
+            _loaded[source] = ctypes.CDLL(str(libs[source]))
         return _loaded[source]
