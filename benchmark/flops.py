@@ -3,9 +3,9 @@
 Peaks: NVIDIA's data sheet for the H100 SXM (dense, no sparsity), which
 assumes the card's full 700 W; the run records the card's power limit.
 FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over one forward of
-the reference network (``reference/model.py``) on the meta device, so
-nothing is computed: convolutions and matrix products at 2 FLOPs a
-multiply-add, nothing else.
+the reference network (``reference/networks/<Network.name>.py``) on the
+meta device, so nothing is computed: convolutions and matrix products at 2
+FLOPs a multiply-add, nothing else.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Shared pieces of the benchmark's tests: the repository root on the path,
-a tiny configuration (the ``tiny`` trunk at 32x32) of each cell, and the
-``card`` fixture that skips a test without a CUDA card."""
+a tiny configuration (the network file's ``TINY`` at 32x32) of each cell,
+and the ``card`` fixture that skips a test without a CUDA card."""
 
 import copy
 import sys
@@ -14,10 +14,14 @@ if str(ROOT) not in sys.path:
 
 
 def tiny(config: dict, dtype: str = "float32") -> dict:
-    """``config`` at test size: the tiny trunk, 6 classes, 32x32 crops of
-    40x40 canvases, batches of 4, few records."""
+    """``config`` at test size: the network file's ``TINY`` overrides of the
+    ``Network`` group, 6 classes, 32x32 crops of 40x40 canvases, batches of
+    4, few records."""
+    from benchmark.reference.model import network_file
+
     c = copy.deepcopy(config)
-    c["Network"].update(num_class=6, backbone="tiny", output_dim=16, dtype=dtype)
+    c["Network"].update(num_class=6, output_dim=16, dtype=dtype)
+    c["Network"].update(network_file(c["Network"]).TINY)
     c["Dataset"].update(batch_size=4, crop_size=[32, 32], canvas_size=[40, 40])
     c["Loss"].update(num_queries=64, num_negatives=512, ohem_min_kept_per_image=200)
     c["Records"] = {"image_hw": [30, 40], "splits": {"labeled": 12, "unlabeled": 12,

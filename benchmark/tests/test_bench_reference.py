@@ -28,8 +28,8 @@ def test_network_matches_the_program(groups):
     cfg = tiny_cell("voc_ori_train").config
     prog, ref = _program_model(cfg), build_reference(cfg)
     assert weights.layout(prog) == weights.layout(ref)
-    weights.fill_(prog, 3)
-    weights.fill_(ref, 3)
+    weights.fill_(prog, 3, cfg["Network"])
+    weights.fill_(ref, 3, cfg["Network"])
     x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(0))
     # the ASPP's pooled branch normalises 8 / groups values a channel, and the
     # program forms their variance as E[x^2] - E[x]^2 in float32
@@ -48,11 +48,11 @@ def test_network_matches_the_program(groups):
 def test_weights_are_the_seeds_and_fill_every_tensor():
     cfg = tiny_cell("voc_ori_train").config
     a, b = build_reference(cfg), build_reference(cfg)
-    weights.fill_(a, 9)
-    weights.fill_(b, 9)
+    weights.fill_(a, 9, cfg["Network"])
+    weights.fill_(b, 9, cfg["Network"])
     for (k, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(x, y) and torch.isfinite(x).all(), k
-    weights.fill_(b, 10)
+    weights.fill_(b, 10, cfg["Network"])
     assert not torch.equal(a.backbone.stem.conv.weight, b.backbone.stem.conv.weight)
     w = a.backbone.stem.conv.weight
     assert float(w.std()) == pytest.approx((2.0 / (64 * 49)) ** 0.5, rel=0.1)

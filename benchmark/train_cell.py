@@ -175,8 +175,8 @@ class TrainRun:
             base_lr=float(cfg["Optim"]["lr"]), weight_decay=float(cfg["Optim"]["weight_decay"]),
             total_steps=self.total_steps, power=float(cfg["Lr_Scheduler"]["power"]),
             min_lr=float(cfg["Lr_Scheduler"]["min_lr"]), device=dev)
-        weights.fill_(state.model, self.seed)
-        weights.fill_(state.teacher, self.seed)
+        weights.fill_(state.model, self.seed, self.net)
+        weights.fill_(state.teacher, self.seed, self.net)
         self.step_cfg = StepConfig(**step_config_kwargs(cfg, self.cell.traffic["strategy"],
                                                         distributed=False))
         self.train_step = make_train_step(self.step_cfg)
@@ -300,7 +300,7 @@ class TrainRun:
         torch.backends.cudnn.benchmark = False
         try:
             model = build_reference(cfg, device=dev)
-            weights.fill_(model, self.seed)
+            weights.fill_(model, self.seed, self.net)
             w0 = _host(model.named_parameters())
             b0 = _host(model.named_buffers())
             st = RefState(model, self.net["num_class"], self.net.get("output_dim", 256))
