@@ -69,8 +69,9 @@ matched); the run continues with ``--resume`` from ``last_model``.
 
 The recipe's network and loss settings come from the YAML as the JAX
 driver reads them: ``Network.backbone`` (``resnet101``, ``resnet101_stem``,
-``tiny``, ``tiny_stem``), ``Network.remat`` (a bool or a list of stage
-indices; by default on when the crop area exceeds 512²) and
+``tiny``, ``tiny_stem``; SegFormer's ``mit_b5``, ``mit_tiny``), ``Network.remat``
+(a bool or a list of stage indices; for a ResNet trunk by default on when the
+crop area exceeds 512², for a MiT trunk off, and it refuses it) and
 ``Network.remat_policy``, ``Loss.sup_loss`` (``ohem`` by default for 19
 classes, else ``ce``) with ``Loss.ohem_thresh`` and
 ``Loss.ohem_min_kept_per_image``, ``Loss.negative_mode`` (``sampled_pallas``
@@ -92,7 +93,7 @@ from css_tpu_torch.config import CONFIG_DIR, dump_config, load_config
 from css_tpu_torch.data import (BatchLoader, InfiniteLoader, build_dataset_specs, decoder_line,
                                 read_split_lists)
 from css_tpu_torch.models.convert import load_torchvision_backbone
-from css_tpu_torch.models.deeplabv3 import build_model
+from css_tpu_torch.models.deeplabv3 import RESNET_BACKBONES, build_model
 from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet, to_channel_first,
                                        to_channel_last)
 from css_tpu_torch.train.checkpoint import (load_prototypes, restore_checkpoint, save_checkpoint,
@@ -214,16 +215,19 @@ def _build_state_and_steps(cfg, args, device, strategy: str = "ori", distributed
     num_classes = cfg.require("Network.num_class")
     output_dim = cfg.get("Network.output_dim", 256)
     crop = tuple(cfg.require("Dataset.crop_size"))
-    model = build_model(num_classes, output_dim, cfg.get("Network.backbone", "resnet101"),
+    backbone = cfg.get("Network.backbone", "resnet101")
+    resnet = backbone in RESNET_BACKBONES
+    model = build_model(num_classes, output_dim, backbone,
                         dtype=_DTYPES[cfg.get("Network.dtype", "bfloat16")],
                         seed=cfg.get("Seed", 3407),
-                        # by crop area, the quantity that sets activation memory
+                        # a ResNet trunk's by crop area, the quantity that sets activation
+                        # memory; a MiT trunk has no remat
                         remat=_remat_setting(cfg.get("Network.remat",
-                                                     crop[0] * crop[1] > 512 * 512)),
+                                                     resnet and crop[0] * crop[1] > 512 * 512)),
                         remat_policy=cfg.get("Network.remat_policy", "nothing"),
                         distributed=distributed)
     pretrained = cfg.get("Network.pretrained", "./pretrained/resnet101.pth")
-    if pretrained and os.path.exists(pretrained):
+    if resnet and pretrained and os.path.exists(pretrained):
         sd = torch.load(pretrained, map_location="cpu", weights_only=True)
         load_torchvision_backbone(sd.get("state_dict", sd), model)
     state = create_train_state(

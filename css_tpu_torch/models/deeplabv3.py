@@ -21,9 +21,11 @@ from css_tpu_torch.models.resnet import (ConvBN, GroupedBatchNorm, ResNetBackbon
                                         resnet101_stem, resnet_tiny)
 
 __all__ = ["DeepLabV3PlusDual", "aspp_rates", "build_model", "set_distributed",
-           "BACKBONES"]
+           "BACKBONES", "RESNET_BACKBONES", "MIT_BACKBONES"]
 
-BACKBONES = ("resnet101", "resnet101_stem", "tiny", "tiny_stem")
+RESNET_BACKBONES = ("resnet101", "resnet101_stem", "tiny", "tiny_stem")
+MIT_BACKBONES = ("mit_b5", "mit_tiny")      # SegFormer's trunks (models/segformer.py)
+BACKBONES = RESNET_BACKBONES + MIT_BACKBONES
 
 
 class _Head(nn.Module):
@@ -112,19 +114,28 @@ def set_distributed(model: nn.Module, distributed: bool) -> nn.Module:
 def build_model(num_classes: int, output_dim: int = 256, backbone: str = "resnet101",
                 output_stride: int = 8, dtype: torch.dtype = torch.float32,
                 seed: int = 0, remat=False, remat_policy: str = "nothing",
-                distributed: bool = False) -> DeepLabV3PlusDual:
+                distributed: bool = False) -> nn.Module:
     """The student/teacher network, randomly initialized from ``seed``
     (on the CPU; move it with ``.to(device)``).  ``backbone`` is one of
     ``BACKBONES``: the plain-stem ResNet-101 (VOC), the deep-stem multi-grid
-    ``resnet101_stem`` (a Cityscapes option), or the tiny test trunks;
+    ``resnet101_stem`` (a Cityscapes option), or the tiny test trunks, each
+    under DeepLabV3+; or a MiT trunk under SegFormer's decoder
+    (``models/segformer.py``: ``mit_b5``, the test trunk ``mit_tiny``).
     ``remat``/``remat_policy`` as ``ResNetBackbone`` takes them;
-    ``output_stride`` 8 or 16 (the tiny trunks have 8 only).
+    ``output_stride`` 8 or 16 (the tiny trunks have 8 only).  A MiT trunk
+    takes neither: it refuses ``remat`` and an ``output_stride`` other than
+    the default.
     ``distributed``: every BatchNorm (trunk, ASPP, heads) takes its
     train-mode statistics over all ranks of the default process group, as
     the JAX model built with ``axis_name`` does."""
     kw = dict(dtype=dtype, remat=remat, remat_policy=remat_policy)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
+        if backbone in MIT_BACKBONES:
+            from css_tpu_torch.models.segformer import build_segformer
+
+            model = build_segformer(backbone, num_classes, output_dim, dtype, output_stride, remat)
+            return set_distributed(model, distributed)
         if backbone == "resnet101":
             trunk = resnet101(output_stride, **kw)
         elif backbone == "resnet101_stem":
