@@ -4,18 +4,28 @@
     python3 chip_smoke.py [--steps N]
 
 Phases, in order; any failure ends the run with a traceback and a non-zero
-exit code, and no result line.  Launch counts: every step runs the
-contrastive loss once, and a loss call launches ``class_live_rows`` (every
-class's compaction) once and K1 and K2 once per class, 21 times a VOC step
-and 19 a Cityscapes step, and the one-vector compaction ``live_rows_compact``
-never; "each kernel launched k times a step" below counts K1 and K2, with
-``class_live_rows`` once a step beside them.  Every block of timed steps
-(phases 5, 6, 6b, 9, 10 and 14) also counts its train-mode
-BatchNorm calls on the card (``_BnCalls``) and fails unless each launched the
-BatchNorm kernels: statistics and output once a call, the statistics' finish
-once more under ``distributed``, the two backward kernels once a call that
+exit code, and no result line.  The train steps run as the entry point
+runs them: on the card, outside ``distributed``, a step function's first
+call of a key is eager, the next captures the step in CUDA graphs
+(``train/graph_step.py``) and later calls replay them; the blocks that
+compare the per-class path hold every step eager (``_eager_steps``).
+Launch counts: the kernels' counters count wrapper calls, which a step
+makes when its Python runs (eagerly or under the capture) and a replay does
+not; so "a step" below is such a step, a block's calls less its replays
+(``REPLAYS``).  Each runs the contrastive loss once, and a loss call
+launches ``class_live_rows`` (every class's compaction) once and K1 and K2
+once per class, 21 times a VOC step and 19 a Cityscapes step, and the
+one-vector compaction ``live_rows_compact`` never; "each kernel launched k
+times a step" below counts K1 and K2, with ``class_live_rows`` once a step
+beside them.  Every block of timed steps (phases 5, 6, 6b, 9, 9b, 10 and
+14), its warm-up included, also counts its train-mode BatchNorm calls on
+the card (``_BnCalls``) and fails unless each launched the BatchNorm
+kernels: statistics and output once a call, the statistics' finish once
+more under ``distributed``, the two backward kernels once a call that
 builds a graph; the final line keeps each block's counts under
-``batchnorm_steps``.
+``batchnorm_steps``.  The main steps (phases 5, 9 and 9b) must replay
+graphs in every timed step, and their replayed state must equal an eager
+run's from the same state, batch and draws (``_graph_vs_eager``).
 
 1. header: the card (``nvidia-smi``), torch and CUDA versions, TF32 flags;
 2. build: every CUDA source of the port, one ``nvcc`` each, all at once;
@@ -59,14 +69,16 @@ builds a graph; the final line keeps each block's counts under
 5. train: the flagship ``ori`` step -- ResNet-101 OS8 DeepLabV3+ dual head,
    21 classes, 512x512 crops, 8 labeled + 8 unlabeled images, CutMix,
    ``sampled_pallas`` negatives, bf16 compute, random weights from a seed,
-   synthetic data -- 2 warm-up steps, then ``--steps`` timed steps with the
-   kernel launch counters zeroed just before and read just after: every
-   loss must be finite, each kernel must launch once per class per step,
-   and the peak device memory must stay within PEAK_GIB_LIMIT; then
-   ``--steps`` steps a block through ``class_live_rows`` and on the
-   per-class path in turns (batched, per-class, per-class, batched, twice), each
-   block's launches checked, and the ratio of their ms/step (the fused
-   Cityscapes step likewise in phase 9);
+   synthetic data -- 2 warm-up steps (the eager one and the capture), then
+   ``--steps`` timed replays, the kernel launch counters zeroed before the
+   warm-up and read after: every loss must be finite, each kernel must
+   launch once per class per step, and the peak device memory of the
+   block must stay within PEAK_GIB_LIMIT; then three steps replayed and
+   three eager from copies of the state, bit-equal (``_graph_vs_eager``);
+   then ``--steps`` eager steps a block through ``class_live_rows`` and on
+   the per-class path in turns (batched, per-class, per-class, batched,
+   twice), each block's launches checked, and the ratio of their ms/step
+   (the fused Cityscapes step likewise in phase 9);
 6. strategies: ``mix``, then ``cross``, continuing the train phase's state
    (so the prototypes are real) with their entry points' thresholds
    (strong 0.8, weak 0.7, unsupervised 0.97, representation temperature
@@ -75,8 +87,8 @@ builds a graph; the final line keeps each block's counts under
    fails unless every loss is finite, each kernel launched 21 times a step
    and the phase's peak memory stays within STRATEGIES_PEAK_GIB_LIMIT, and
    prints each strategy's ms/step beside the train phase's ``ori`` ms/step
-   and the share of valid unlabeled pixels that keep a label (for ``mix``,
-   where the two label spaces agree);
+   and the share of valid unlabeled pixels that keep a label in the eager
+   steps (for ``mix``, where the two label spaces agree);
 6b. opt-in steps, continuing the train phase's state: a full-size VOC
    ``ori`` step (1 warm-up + ``--steps`` timed) in ``sampled_pallas`` (the
    yardstick, timed in this phase) and in each of the negative modes
@@ -131,11 +143,13 @@ builds a graph; the final line keeps each block's counts under
    classes, ResNet-101 OS8, 769x769 crops from a 1024x2048 canvas at scale
    0.5-2.0, 4 labeled + 4 unlabeled images, OHEM CE at 0.7 keeping at least
    50,000 pixels per image, the fused labeled + unlabeled forward with
-   grouped BatchNorm, no remat) on a device-resident synthetic batch: 2
-   warm-up + ``--steps`` timed steps; it fails unless every loss is finite,
-   each kernel launched 19 times a step and the peak stays within
-   CITY_PEAK_GIB_LIMIT, and prints ms/step, img/s, peak memory and OHEM's
-   kept pixels and threshold.  Then, in the same run: the step with two
+   grouped BatchNorm, no remat) on a device-resident synthetic batch:
+   first three steps replayed against three eager ones from copies of the
+   state (``_graph_vs_eager``), then 2 warm-up + ``--steps`` timed steps; it
+   fails unless every loss is finite, each kernel launched 19 times a step
+   and the peak stays within CITY_PEAK_GIB_LIMIT, and prints ms/step,
+   img/s, peak memory and OHEM's kept pixels and threshold in the eager
+   step.  Then, in the same run: the step with two
    passes instead of the fused one (1 warm-up + ``--steps`` timed; both
    ms/step and their ratio), one ``mix`` step with the fused teacher pass
    (after a warm-up step), ``resnet101_stem`` with remat on (the default at
@@ -145,6 +159,13 @@ builds a graph; the final line keeps each block's counts under
    entry point on the shipped YAML (``--synthetic --num_labels 8
    --total_iter 2 --max_steps 2``: 2 steps and an eval) with finite losses,
    every valid label pixel counted and 38 launches per kernel (2 steps);
+9b. segformer: the shipped SegFormer-B5 YAML's step (``css_tpu_torch/
+   config/VOC_segformer_b5.yaml`` through ``_build_state_and_steps``: MiT-B5,
+   the all-MLP decoder, 21 classes, 512x512, b8 + 8, bf16) on the train
+   phase's batch: three steps replayed against three eager ones
+   (``_graph_vs_eager``), then 2 warm-up + ``--steps`` timed steps with
+   finite losses, 21 launches per kernel a step and the BN check (the
+   decoder's and the representation head's), and ms/step, img/s and peak;
 10. distributed: data parallelism (``css_tpu_torch/parallel``), in three
    parts.  (1) World size 1 over NCCL, in this process, at the VOC width:
    the shipped VOC YAML's ``ori`` step through ``_build_state_and_steps``
@@ -201,26 +222,30 @@ builds a graph; the final line keeps each block's counts under
    6``: 3 epochs of 2 steps, an eval after each; the checkpoints are
    recorded, not written), with real allocator failures on the card (an
    allocation of the card's whole memory and 1 GiB more) injected from
-   inside the step by patching.  (a) Unfaulted.  (b) A forward hook on the
-   student's trunk fails at the 4th attempt, after the teacher's and the
-   student's BN stats moved: the state the retry is given must equal, by
-   SHA-256, the state the failed attempt was given, the run must end at
-   step 6, and its final state must equal (a)'s bit for bit.  Both run
+   inside the step by patching.  Each run's step is eager in its first
+   attempt, captured in its second and replayed from then on.  (a)
+   Unfaulted.  (b) A forward hook on the student's trunk fails in the 1st
+   attempt (eager), after the teacher's and the student's BN stats moved:
+   the state the retry is given must equal, by SHA-256, the state the
+   failed attempt was given, the run must end at step 6, and its final
+   state must equal (a)'s bit for bit.  Both run
    under ``torch.use_deterministic_algorithms`` and cuDNN's deterministic
    picks (by default two runs on the card differ in the last bits); where
    they still differ, a second unfaulted run (a2) says whether the card or
    the retry is the cause, and the phase fails only for the retry.
-   (c) ``ema_update`` fails at
-   the 4th attempt, after the commit: the snapshot of epoch 0 is restored,
-   the attempts start at steps 0, 1, 2, 3, 2, 3, 4 (as ``css_tpu``
-   rewinds), the losses stay finite and the run ends at step 5.  (d) The
-   hook fails from the 4th attempt on: the third failure must propagate as
-   an OutOfMemoryError with the first one in its context.  (e)
+   (c) The 4th attempt, a replay, fails before its graphs launch, which is
+   after the commit (the step marks the state consumed before a replay):
+   the snapshot of epoch 0 is restored, the attempts start at steps 0, 1,
+   2, 3, 2, 3, 4 (as ``css_tpu`` rewinds), the losses stay finite and the
+   run ends at step 5.  (d) The hook fails in every attempt: the retry in
+   place fails, the snapshot is restored, and the third failure must
+   propagate as an OutOfMemoryError with the first one in its context.  (e)
    ``Training_Setting.host_recovery: 0`` and (c)'s fault: a RuntimeError
    naming the key, caused by the fault.  (f) The first eval fails: the log
    reads mIoU -1, no ``best_model`` is saved at that epoch, the snapshot is
    refreshed, and the run ends at step 4.  Each run's launches must be
-   one loss's per attempt that reached the contrastive loss.  It prints the
+   one loss's per attempt that reached the contrastive loss in Python
+   (eager or captured).  It prints the
    snapshot's GiB and seconds per refresh, the retry's and the restore's
    wall times and the peaks of (a) and (b).  (g) ``distributed_init``
    through ``COORDINATOR_ADDRESS=127.0.0.1:<free port>`` with one process
@@ -267,6 +292,10 @@ BN_SHAPES = (   # (label, [N, C, H, W], groups, residual, relu): the main path's
 )
 CITY_YAML = "CityScapes_config_baseline.yaml"
 VOC_YAML = "VOC_config_baseline.yaml"
+SEGFORMER_YAML = "VOC_segformer_b5.yaml"
+FAILED_CAPTURE_GIB_LIMIT = 4.0  # reserved beyond the live tensors after a failed capture
+                                # (0.8 GiB after a collection with no graph; a step's
+                                # capture holds 18-20)
 DIST_LOSS_RTOL = 1e-2           # world-1 NCCL step vs the plain step: cuDNN's picks may differ
 
 
@@ -296,6 +325,67 @@ def _check_launches(label: str, launches: dict, calls: int, c: int = 21) -> None
         raise RuntimeError(f"{label}: launches {launches}, want {want}")
 
 
+REPLAYS = [0]           # train-step calls that replayed graphs captured before
+_HOLD_EAGER = [False]   # True inside _eager_steps()
+
+
+def _watch_step_graphs(torch):
+    """Wraps ``StepGraphs.prepare`` (``train/graph_step.py``) for the whole
+    script: counts in ``REPLAYS`` each train-step call that replays graphs
+    captured before (a call that captures runs the step's Python once, under
+    the capture, as an eager call does; a replay runs none, so a block's
+    steps that the launch counters and ``_BnCalls`` see are its calls less
+    its replays); returns None, so that the step runs eagerly, inside
+    ``_eager_steps()``; and where a capture fails (the step then runs
+    eagerly, for good, with a warning), puts the kernels' counters and the
+    open ``_BnCalls``' counts back as they stood before it (the capture ran
+    nothing on the card), and fails unless the capture's memory went back to
+    the allocator (``FAILED_CAPTURE_GIB_LIMIT``)."""
+    import gc
+
+    from css_tpu_torch.ops.kernels import batchnorm_kernels as bk
+    from css_tpu_torch.ops.kernels import contrastive_kernels as ck
+    from css_tpu_torch.train.graph_step import StepGraphs
+
+    real = StepGraphs.prepare
+
+    def prepare(self, *args):
+        if _HOLD_EAGER[0]:
+            return None
+        captures, failed = self.captures, self.failed
+        before = dict(ck.LAUNCHES), dict(bk.LAUNCHES), [b.counts() for b in _BnCalls.OPEN]
+        replay = real(self, *args)
+        if replay is not None and self.captures == captures:
+            REPLAYS[0] += 1
+        if self.failed is not None and failed is None:
+            ck.LAUNCHES.update(before[0])
+            bk.LAUNCHES.update(before[1])
+            for b, counts in zip(_BnCalls.OPEN, before[2]):
+                b.calls, b.distributed, b.graphs = counts
+            # and the capture's memory went back: what stays reserved after a
+            # collection is the live tensors' and their segments' slack
+            gc.collect()
+            torch.cuda.empty_cache()
+            kept = (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()) / 2**30
+            print(f"train step: CUDA graph capture failed, eager from now on ({self.failed}); "
+                  f"reserved beyond the live tensors after it: {kept:.3f} GiB", flush=True)
+            if kept > FAILED_CAPTURE_GIB_LIMIT:
+                raise RuntimeError(f"a failed capture kept {kept:.3f} GiB reserved")
+        return replay
+
+    StepGraphs.prepare = prepare
+
+
+@contextlib.contextmanager
+def _eager_steps():
+    """Inside, every train step runs eagerly (``_watch_step_graphs``)."""
+    _HOLD_EAGER[0] = True
+    try:
+        yield
+    finally:
+        _HOLD_EAGER[0] = False
+
+
 BN_STEP_LAUNCHES = {}   # label -> the BN kernels' launches and calls of its timed steps
 
 
@@ -308,7 +398,10 @@ class _BnCalls:
     kernels once: a remat recompute (``update_stats`` off) launches the
     forward again, not the backward.  It keeps the launches, the calls and
     ``fallback`` (calls less statistics launches: calls that took another
-    path) in ``BN_STEP_LAUNCHES[label]``."""
+    path) in ``BN_STEP_LAUNCHES[label]``.  A replayed step calls no module:
+    the counts are of the steps whose Python ran (``_watch_step_graphs``)."""
+
+    OPEN = []       # the instances inside their ``with``
 
     def __init__(self, torch):
         from css_tpu_torch.models.resnet import GroupedBatchNorm
@@ -327,12 +420,17 @@ class _BnCalls:
                 t.requires_grad for t in tensors + [module.weight, module.bias]):
             self.graphs += 1
 
+    def counts(self) -> tuple:
+        return self.calls, self.distributed, self.graphs
+
     def __enter__(self):
         self.bk.reset_launches()
         self.handle = self.torch.nn.modules.module.register_module_forward_pre_hook(self._count)
+        self.OPEN.append(self)
         return self
 
     def __exit__(self, *exc):
+        self.OPEN.remove(self)
         self.handle.remove()
 
     def check(self, label: str) -> None:
@@ -838,20 +936,30 @@ def _check_finite(losses, label: str):
             raise RuntimeError(f"{label}: non-finite losses at timed step {i}: {bad}")
 
 
-def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: str):
-    """``warmup`` untimed steps, then ``steps`` timed ones with the launch
-    counters zeroed and the peak reset just before; fails on a non-finite
-    loss, launches other than one contrastive loss over ``c`` classes a
-    step (``_want_launches``; ``c`` 0: a path that runs no kernel), or a
-    train-mode BN that missed the BatchNorm kernels (``_BnCalls``).  Returns
-    (ms per step, peak GiB, contrastive launches)."""
-    for _ in range(warmup):
-        one_step()
+def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: str,
+                 graphed: bool = False):
+    """``warmup`` untimed steps, then ``steps`` timed ones, with the launch
+    counters zeroed before the warm-up and the peak reset after its first
+    step (the key's eager call, which carries cuDNN's autotune; the capture
+    follows it), so that both hold the capture; fails on a non-finite loss, launches other
+    than one contrastive loss over ``c`` classes a step whose Python ran
+    (``_want_launches``; ``c`` 0: a path that runs no kernel), a train-mode
+    BN that missed the BatchNorm kernels (``_BnCalls``), or, with
+    ``graphed``, a timed step that did not replay CUDA graphs.  Returns (ms
+    per step, peak GiB, contrastive launches)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launches()
+    replays = REPLAYS[0]
     losses, times = [], []
     with _BnCalls(torch) as bn_calls:
+        for i in range(warmup):
+            one_step()
+            if i == 0:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        timed = REPLAYS[0]
         for _ in range(steps):
             t0 = time.perf_counter()
             losses.append(one_step())
@@ -860,28 +968,36 @@ def _timed_steps(torch, ck, one_step, warmup: int, steps: int, c: int, label: st
     bn_calls.check(label)
     launches = dict(ck.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    replayed, timed = REPLAYS[0] - replays, REPLAYS[0] - timed
     losses = [{k: v.item() for k, v in m.items()} for m in losses]
     for i, m in enumerate(losses):
         print(f"{label} step {i}: {times[i] * 1e3:.3f} ms " + json.dumps(m), flush=True)
     _check_finite(losses, label)
-    _check_launches(f"{label} ({steps} steps)", launches, steps if c else 0, c)
+    python = warmup + steps - replayed
+    _check_launches(f"{label} ({warmup + steps} steps, {replayed} replayed)", launches,
+                    python if c else 0, c)
+    if graphed and timed != steps:
+        raise RuntimeError(f"{label}: {timed} of the {steps} timed steps replayed CUDA graphs")
     ms = sum(times) / steps * 1e3
-    print(f"{label}: {ms:.3f} ms/step (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
-          f"peak memory {peak:.3f} GiB, launches {json.dumps(launches)}", flush=True)
+    print(f"{label}: {ms:.3f} ms/step (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}; "
+          f"{timed} of {steps} replayed), peak memory {peak:.3f} GiB, launches "
+          f"{json.dumps(launches)} in {python} steps that ran their Python", flush=True)
     return ms, peak, launches
 
 
 def _class_path_pairs(torch, ck, one_step, steps: int, c: int, label: str):
     """The step through ``class_live_rows`` and on the per-class path it
     replaced (``_PerClassPath``), ``steps`` timed steps a block, in turns:
-    batched, per-class, per-class, batched, twice; each block's launches
-    checked.  Prints each block's ms/step and the ratio of the sums."""
+    batched, per-class, per-class, batched, twice, every step eager (a
+    replay would not see the patch); each block's launches checked.  Prints
+    each block's ms/step and the ratio of the sums."""
     ms = {"batched": [], "per_class": []}
     for path in ("batched", "per_class", "per_class", "batched") * 2:
         torch.cuda.synchronize()
         ck.reset_launches()
         t0 = time.perf_counter()
-        with _PerClassPath() if path == "per_class" else contextlib.nullcontext():
+        with _PerClassPath() if path == "per_class" else contextlib.nullcontext(), \
+                _eager_steps():
             for _ in range(steps):
                 _check_finite([{k: v.item() for k, v in one_step().items()}],
                               f"{label} {path}")
@@ -899,6 +1015,71 @@ def _class_path_pairs(torch, ck, one_step, steps: int, c: int, label: str):
           f"ms/step, per-class {json.dumps(ms['per_class'])} ms/step; batched / per-class "
           f"{ratio:.4f}", flush=True)
     return ratio
+
+
+def _graph_vs_eager(torch, label: str, state, make_step, batch: dict, make_draws) -> None:
+    """The replayed step against the eager one at full size: copies of
+    ``state`` take three steps on ``batch`` with the same draws (the list
+    ``make_draws()`` returns, made anew for each copy from the same seed),
+    each through a new step function (``make_step()``): one as it runs (its
+    first call eager, the next a capture, replays after), two with every
+    step eager; all under deterministic algorithms and cuDNN's deterministic
+    picks.  Where the two eager runs agree bit for bit (the card repeats
+    itself), the replayed run must equal them bit for bit in the losses, both
+    networks' parameters and buffers, the momentum and the prototypes; where
+    they do not, its largest gap from the first must stay within four times
+    theirs.  It must replay at least once."""
+    import copy
+
+    flags = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs, replayed = {}, 0
+    try:
+        for name in ("replayed", "eager", "eager again"):
+            st, step = copy.deepcopy(state), make_step()
+            replays = REPLAYS[0]
+            losses = []
+            draws = make_draws()
+            with _eager_steps() if name != "replayed" else contextlib.nullcontext():
+                for d in draws:
+                    metrics = step(st, batch, d, 1.0)[1]
+                    losses.append(torch.stack([metrics[k] for k in sorted(metrics)]).float().cpu())
+            if name == "replayed":
+                replayed = REPLAYS[0] - replays
+            runs[name] = _host_state(st) + losses
+            del st, step
+            _free(torch)
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[1:]
+
+    def gap(a, b) -> float:
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    graph_gap, eager_gap = gap(runs["replayed"], runs["eager"]), gap(runs["eager again"],
+                                                                     runs["eager"])
+    equal = all(torch.equal(x, y) for x, y in zip(runs["replayed"], runs["eager"]))
+    print(f"{label} replayed vs eager, {len(draws)} steps from one state ({replayed} replayed; "
+          f"{len(runs['eager'])} tensors: losses, student, teacher, momentum, prototypes): "
+          f"bit-equal {equal}, largest gap {graph_gap:.6g}; eager vs eager again: largest gap "
+          f"{eager_gap:.6g}", flush=True)
+    if replayed < 1:
+        raise RuntimeError(f"{label}: the graph run replayed no step")
+    if not all(math.isfinite(float(t.abs().max())) for t in runs["replayed"][-len(draws):]):
+        raise RuntimeError(f"{label}: non-finite losses in the replayed run")
+    if (eager_gap == 0 and not equal) or graph_gap > 4 * eager_gap:
+        raise RuntimeError(f"{label}: the replayed steps differ from the eager ones by "
+                           f"{graph_gap:.6g} (two eager runs: {eager_gap:.6g})")
+
+
+def _seeded_draws(torch, cfg, bsz: int, rows: int, n: int = 3) -> list:
+    """``n`` steps' draws from one fixed seed."""
+    from css_tpu_torch.train.draws import sample_step_draws
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    return [sample_step_draws(g, cfg, bsz, bsz, rows) for _ in range(n)]
 
 
 def _voc_batch(torch, bsz: int, crop: int, c: int):
@@ -935,10 +1116,15 @@ def train_phase(torch, ck, steps: int):
         _, metrics = step(state, batch, draws, 1.0)
         return metrics
 
-    ms, peak_gib, launches = _timed_steps(torch, ck, one_step, 2, steps, c, "train")
+    ms, peak_gib, launches = _timed_steps(torch, ck, one_step, 2, steps, c, "train",
+                                          graphed=True)
     if peak_gib > PEAK_GIB_LIMIT:
         raise RuntimeError(f"peak memory {peak_gib:.3f} GiB exceeds {PEAK_GIB_LIMIT} GiB")
     print(f"train: {2 * bsz * 1e3 / ms:.3f} img/s", flush=True)
+    del step
+    _graph_vs_eager(torch, "train", state, lambda: make_train_step(cfg), batch,
+                    lambda: _seeded_draws(torch, cfg, bsz, 2 * bsz * h * w))
+    step = make_train_step(cfg)
     _class_path_pairs(torch, ck, one_step, steps, c, "train")
     return launches, dict(state=state, batch=batch, g=g, ms=ms)
 
@@ -958,9 +1144,11 @@ def strategies_phase(torch, ck, train, steps: int):
     real_mix = ts.mix_batch
 
     def recording_mix(img, labels, confs, **kw):
-        # before mixing: padding has confidence 0, a disagreement label -1
-        valid = confs[:, 0] > 0
-        kept.append(torch.stack([(valid & (labels[:, 0] >= 0)).sum(), valid.sum()]))
+        # before mixing: padding has confidence 0, a disagreement label -1;
+        # in eager steps only (a capture's tensors hold no values)
+        if not torch.cuda.is_current_stream_capturing():
+            valid = confs[:, 0] > 0
+            kept.append(torch.stack([(valid & (labels[:, 0] >= 0)).sum(), valid.sum()]))
         return real_mix(img, labels, confs, **kw)
 
     torch.cuda.synchronize()
@@ -976,14 +1164,16 @@ def strategies_phase(torch, ck, train, steps: int):
             draws = sample_step_draws(g, cfg, bsz, bsz, 2 * bsz * h * w)
             return step(state, batch, draws, 1.0, use_rep)[1]
 
-        one_step(False)                       # warm-up; cross still on logit labels
         torch.cuda.synchronize()
         ck.reset_launches()
         kept.clear()
         ts.mix_batch = recording_mix
         losses, times = [], []
+        replays = REPLAYS[0]
         try:
             with _BnCalls(torch) as bn_calls:
+                one_step(False)               # warm-up; cross still on logit labels
+                torch.cuda.synchronize()
                 for _ in range(steps):
                     t0 = time.perf_counter()
                     losses.append(one_step(strategy == "cross"))
@@ -993,18 +1183,20 @@ def strategies_phase(torch, ck, train, steps: int):
             ts.mix_batch = real_mix
         bn_calls.check(strategy)
         launches = dict(ck.LAUNCHES)
+        replayed = REPLAYS[0] - replays
         losses = [{k: v.item() for k, v in m.items()} for m in losses]
         for i, m in enumerate(losses):
             print(f"{strategy} step {i}: {times[i] * 1e3:.3f} ms " + json.dumps(m), flush=True)
         _check_finite(losses, strategy)
-        _check_launches(f"{strategy} ({steps} steps)", launches, steps, c)
+        _check_launches(f"{strategy} ({1 + steps} steps, {replayed} replayed)", launches,
+                        1 + steps - replayed, c)
         ms[strategy] = sum(times) / steps * 1e3
         share = torch.stack(kept).sum(0).tolist()
         print(f"{strategy}: {ms[strategy]:.3f} ms/step (min {min(times) * 1e3:.3f}, max "
               f"{max(times) * 1e3:.3f}) vs ori {train['ms']:.3f} ms/step in this run "
-              f"({ms[strategy] / train['ms']:.4f}x); unlabeled pixels with a label / valid "
-              f"{share[0]}/{share[1]} = {share[0] / share[1]:.4f}; launches "
-              f"{json.dumps(launches)}", flush=True)
+              f"({ms[strategy] / train['ms']:.4f}x; {replayed} steps replayed); unlabeled "
+              f"pixels with a label / valid in the eager steps {share[0]}/{share[1]} = "
+              f"{share[0] / share[1]:.4f}; launches {json.dumps(launches)}", flush=True)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if peak_gib > STRATEGIES_PEAK_GIB_LIMIT:
         raise RuntimeError(f"strategies: peak memory {peak_gib:.3f} GiB exceeds "
@@ -1032,10 +1224,12 @@ def cross_entry_phase(torch, ck):
         os.chdir(workdir)
         with _DriverProbe(torch, train_main) as probe:
             ck.reset_launches()
+            replays = REPLAYS[0]
             t0 = time.perf_counter()
             result = train_main.run_training("cross", args)
             seconds = time.perf_counter() - t0
             launches = dict(ck.LAUNCHES)
+            replayed = REPLAYS[0] - replays
     finally:
         os.chdir(cwd)
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1048,7 +1242,7 @@ def cross_entry_phase(torch, ck):
                            f"{flags}, want {list(zip(ramp, (False, False, True, True)))}")
     if len(probe.evals) != 2:
         raise RuntimeError(f"cross entry point: {len(probe.evals)} evals, want 2")
-    _check_launches("cross entry point", launches, 4)
+    _check_launches(f"cross entry point (4 steps, {replayed} replayed)", launches, 4 - replayed)
     for i, m in enumerate(losses):
         print(f"cross entry step {i + 1} (weight {flags[i][0]:.6f}, rep labels "
               f"{flags[i][1]}): " + json.dumps(m), flush=True)
@@ -1176,6 +1370,7 @@ def driver_phase(torch, ck, smi: str, keep_checkpoint: str):
         last = os.path.join(workdir, "checkpoints", "smoke", "last_model")
         with _DriverProbe(torch, train_main) as probe:
             ck.reset_launches()
+            replays = REPLAYS[0]
             for run, extra in (("A", ["--total_iter", "4", "--max_steps", "4"]),
                                ("B", ["--resume", last, "--total_iter", "8", "--max_steps", "6"])):
                 if run == "B":
@@ -1190,6 +1385,7 @@ def driver_phase(torch, ck, smi: str, keep_checkpoint: str):
                 if run == "B":
                     start_step, start_protos = probe.start
             launches = dict(ck.LAUNCHES)
+            replayed = REPLAYS[0] - replays
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         shutil.copy(last, keep_checkpoint)
     finally:
@@ -1209,7 +1405,7 @@ def driver_phase(torch, ck, smi: str, keep_checkpoint: str):
         raise RuntimeError("driver: run B did not start from the prototypes run A saved")
     if len(probe.evals) != 2:
         raise RuntimeError(f"driver: {len(probe.evals)} evals, want one per run")
-    _check_launches("driver (both runs, 6 steps)", launches, 6)
+    _check_launches(f"driver (both runs, 6 steps, {replayed} replayed)", launches, 6 - replayed)
 
     sps = results["A"]["steps_per_sec"]
     for i, m in enumerate(losses):
@@ -1566,20 +1762,25 @@ def cityscapes_phase(torch, ck, smi: str, steps: int):
     kept, thresholds = [], []
     real_ce, real_keep = ce.per_pixel_cross_entropy, ce.ohem_keep_threshold
 
+    # in eager steps only (a capture's tensors hold no values)
     def recording_ce(logits, labels):
-        kept.append((labels >= 0).sum())
+        if not torch.cuda.is_current_stream_capturing():
+            kept.append((labels >= 0).sum())
         return real_ce(logits, labels)
 
     def recording_keep(*args):
-        thresholds.append(real_keep(*args))
-        return thresholds[-1]
+        threshold = real_keep(*args)
+        if not torch.cuda.is_current_stream_capturing():
+            thresholds.append(threshold)
+        return threshold
 
+    _graph_vs_eager(torch, "cityscapes fused", state, lambda: make_train_step(step_cfg), batch,
+                    lambda: _seeded_draws(torch, step_cfg, bsz, 2 * bsz * h * w))
     fused = runner(state, step_cfg, step)
-    for _ in range(2):
-        fused()
     ce.per_pixel_cross_entropy, ce.ohem_keep_threshold = recording_ce, recording_keep
     try:
-        ms_fused, peak, launches = _timed_steps(torch, ck, fused, 0, steps, c, "cityscapes fused")
+        ms_fused, peak, launches = _timed_steps(torch, ck, fused, 2, steps, c, "cityscapes fused",
+                                                graphed=True)
     finally:
         ce.per_pixel_cross_entropy, ce.ohem_keep_threshold = real_ce, real_keep
     if peak > CITY_PEAK_GIB_LIMIT:
@@ -1591,7 +1792,9 @@ def cityscapes_phase(torch, ck, smi: str, steps: int):
           f"peak memory {peak:.3f} GiB (limit {CITY_PEAK_GIB_LIMIT}); OHEM kept "
           f"{[int(k) for k in kept]} of {labeled} labeled pixels (min_kept "
           f"{step_cfg.ohem_min_kept_per_image * bsz}), thresholds "
-          f"{[round(float(t), 6) for t in thresholds]}", flush=True)
+          f"{[round(float(t), 6) for t in thresholds]} in the eager steps", flush=True)
+    del step, fused         # and the fused step's graphs
+    _free(torch)
 
     two_pass_cfg = dataclasses.replace(step_cfg, fused_forward=False)
     two_pass = runner(state, two_pass_cfg, make_train_step(two_pass_cfg))
@@ -1599,13 +1802,15 @@ def cityscapes_phase(torch, ck, smi: str, steps: int):
     print(f"cityscapes fused {ms_fused:.3f} ms/step vs two-pass {ms_two:.3f} ms/step: "
           f"fused / two-pass {ms_fused / ms_two:.4f}; peaks {peak:.3f} / {peak_two:.3f} GiB",
           flush=True)
+    del two_pass
+    _free(torch)
 
     # the mix entry point's thresholds (strong 0.8, weak 0.7, unsupervised 0.97)
     mix_cfg = dataclasses.replace(step_cfg, strategy="mix", strong_threshold=0.8,
                                   weak_threshold=0.7, un_threshold=0.97, rep_temp=0.5)
     mix = runner(state, mix_cfg, make_train_step(mix_cfg), False)
     _timed_steps(torch, ck, mix, 1, 1, c, "cityscapes mix (fused teacher)")
-    del state, step, fused, two_pass, mix, batch
+    del state, mix, batch
     _free(torch)
 
     _ohem_on_card(torch, (bsz,) + tuple(step_cfg.crop_hw), c,
@@ -1641,10 +1846,12 @@ def cityscapes_phase(torch, ck, smi: str, steps: int):
         os.chdir(workdir)
         with _DriverProbe(torch, train_main) as probe:
             ck.reset_launches()
+            replays = REPLAYS[0]
             t0 = time.perf_counter()
             result = train_main.run_training("ori", args)
             seconds = time.perf_counter() - t0
             entry_launches = dict(ck.LAUNCHES)
+            replayed = REPLAYS[0] - replays
         peak_entry = torch.cuda.max_memory_allocated() / 2**30
     finally:
         os.chdir(cwd)
@@ -1654,12 +1861,45 @@ def cityscapes_phase(torch, ck, smi: str, steps: int):
     if result["steps"] != 2 or len(probe.evals) != 1:
         raise RuntimeError(f"cityscapes entry point: {result['steps']} steps, "
                            f"{len(probe.evals)} evals")
-    _check_launches("cityscapes entry point", entry_launches, 2, c)
+    _check_launches(f"cityscapes entry point (2 steps, {replayed} replayed)", entry_launches,
+                    2 - replayed, c)
     e = probe.evals[0]
     print(f"cityscapes entry point: {seconds:.3f} s wall, {json.dumps(result)}, losses "
           f"{json.dumps(losses)}, eval {e['seconds'] * 1e3 / e['images']:.3f} ms/image over "
           f"{e['images']} images ({e['pixels']} valid label pixels counted), peak memory "
           f"{peak_entry:.3f} GiB, launches {json.dumps(entry_launches)}", flush=True)
+    return launches
+
+
+def segformer_phase(torch, ck, smi: str, steps: int):
+    """The shipped SegFormer-B5 YAML's step; see the module docstring.
+    Returns its launches."""
+    from css_tpu_torch.config import CONFIG_DIR, load_config
+    from css_tpu_torch.train.draws import sample_step_draws
+    from css_tpu_torch.train.train_step import make_train_step
+
+    _free(torch)
+    cfg = load_config(os.path.join(CONFIG_DIR, SEGFORMER_YAML))
+    c, bsz = cfg.require("Network.num_class"), cfg.require("Dataset.batch_size")
+    state, step_cfg, step = _city_state(torch, cfg)
+    if type(state.model).__name__ != "SegFormerDual":
+        raise RuntimeError(f"segformer: the shipped YAML built {type(state.model).__name__}")
+    batch = _voc_batch(torch, bsz, step_cfg.crop_hw[0], c)
+    h, w = state.model.output_hw(step_cfg.crop_hw)
+    rows = 2 * bsz * h * w
+    _graph_vs_eager(torch, "segformer", state, lambda: make_train_step(step_cfg), batch,
+                    lambda: _seeded_draws(torch, step_cfg, bsz, rows))
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def one_step():
+        return step(state, batch, sample_step_draws(g, step_cfg, bsz, bsz, rows), 1.0)[1]
+
+    ms, peak, launches = _timed_steps(torch, ck, one_step, 2, steps, c, "segformer",
+                                      graphed=True)
+    print(f"segformer ({smi}): {ms:.3f} ms/step, {2 * bsz * 1e3 / ms:.3f} img/s, peak memory "
+          f"{peak:.3f} GiB", flush=True)
+    del state, step, one_step, batch
+    _free(torch)
     return launches
 
 
@@ -1705,8 +1945,9 @@ def _world_one(torch, ck, smi: str, steps: int, train_ms: float):
         set_distributed(st.model, False)
         set_distributed(st.teacher, False)
     plain_step = make_train_step(dataclasses.replace(step_cfg, distributed=False))
-    m_plain = {k: v.item() for k, v in plain_step(plain, batch, first, 1.0)[1].items()}
-    plain_step(again, batch, first, 1.0)
+    with _eager_steps():                # as the distributed step runs
+        m_plain = {k: v.item() for k, v in plain_step(plain, batch, first, 1.0)[1].items()}
+        plain_step(again, batch, first, 1.0)
     m_dist = {k: v.item() for k, v in step(state, batch, first, 1.0)[1].items()}
     gaps = {k: abs(m_dist[k] - m_plain[k]) / max(abs(m_plain[k]), 1e-12) for k in m_plain}
 
@@ -1974,21 +2215,24 @@ def _voc_yaml(workdir: str, name: str, **overrides) -> str:
 def _driver_run(torch, ck, argv, label: str, steps: int):
     """``ori`` through the driver's entry point under a probe: finite
     losses, ``steps`` steps, one eval that counted every valid label pixel,
-    one contrastive loss's launches a step.  Returns (result, launches,
+    one contrastive loss's launches a step whose Python ran (the eager and
+    the captured ones).  Returns (result, launches,
     probe, seconds)."""
     from css_tpu_torch.cli import entries, train_main
 
     with _DriverProbe(torch, train_main) as probe:
         ck.reset_launches()
+        replays = REPLAYS[0]
         t0 = time.perf_counter()
         result = train_main.run_training("ori", entries.ori_pseudo_parser().parse_args(argv))
         seconds = time.perf_counter() - t0
         launches = dict(ck.LAUNCHES)
+        replayed = REPLAYS[0] - replays
     losses = [{k: v.item() for k, v in m.items()} for m in probe.losses]
     _check_finite(losses, label)
     if result["steps"] != steps or len(losses) != steps or len(probe.evals) != 1:
         raise RuntimeError(f"{label}: {result}, {len(losses)} steps, {len(probe.evals)} evals")
-    _check_launches(label, launches, steps)
+    _check_launches(f"{label} ({replayed} replayed)", launches, steps - replayed)
     e = probe.evals[0]
     print(f"{label}: {seconds:.3f} s wall, {json.dumps(result)}, losses {json.dumps(losses)}, "
           f"eval {e['images']} images ({e['pixels']} valid label pixels counted), launches "
@@ -2323,28 +2567,31 @@ class _RecoveryProbe:
     one run: records the step each attempt starts from, each successful
     attempt's losses, the state, the saves (not written) and the recovery's
     timings; injects allocator failures from inside the attempts numbered
-    (from 1) in ``before`` (a forward hook on the student's trunk) and
-    ``after`` (in ``ema_update``, after the commit), and into the first eval
-    with ``eval_fault``; with ``digest_at``, takes the state's SHA-256 when
-    that attempt and the next start."""
+    (from 1) in ``before`` (a forward hook on the student's trunk: an eager
+    attempt, before the commit) and ``after`` (after the commit: in
+    ``ema_update`` in an eager attempt, before the graphs launch in a
+    replay), and into the first eval with ``eval_fault``; with
+    ``digest_at``, takes the state's SHA-256 when that attempt and the next
+    start.  ``replayed`` counts the attempts that replayed graphs."""
 
     def __init__(self, torch, before=(), after=(), eval_fault=False, digest_at=None):
         from css_tpu_torch.cli import train_main
-        from css_tpu_torch.train import train_step
+        from css_tpu_torch.train import graph_step, train_step
 
-        self.torch, self.tm, self.ts = torch, train_main, train_step
+        self.torch, self.tm, self.ts, self.gs = torch, train_main, train_step, graph_step
         self.before, self.after, self.eval_fault = set(before), set(after), eval_fault
         self.digest_at = digest_at
         self.starts, self.losses, self.saves, self.digests, self.faults = [], [], [], [], []
         self.refreshes, self.restores, self.recoveries = [], [], []
-        self.state = None
+        self.state, self.faults_before, self.replayed = None, 0, 0
         self.orig = dict(make_train_step=train_main.make_train_step,
                          make_eval_step=train_main.make_eval_step,
                          save_checkpoint=train_main.save_checkpoint,
                          _recover_and_rerun=train_main._recover_and_rerun,
                          refresh=train_main._HostRecovery.refresh,
                          restore=train_main._HostRecovery.restore,
-                         ema_update=train_step.ema_update)
+                         ema_update=train_step.ema_update,
+                         replay=graph_step._Replay.__call__)
 
     def __enter__(self):
         tm, probe, torch = self.tm, self, self.torch
@@ -2359,11 +2606,13 @@ class _RecoveryProbe:
                 n = len(probe.starts)
                 if probe.digest_at is not None and n in (probe.digest_at, probe.digest_at + 1):
                     probe.digests.append(state_sha256(state))
-                hook = (state.model.backbone.register_forward_hook(probe._fail)
+                hook = (state.model.backbone.register_forward_hook(probe._fail_before)
                         if n in probe.before else None)
+                replays = REPLAYS[0]
                 try:
                     state, metrics = step(state, *args)
                 finally:
+                    probe.replayed += REPLAYS[0] - replays
                     if hook is not None:
                         hook.remove()
                 probe.losses.append({k: v.item() for k, v in metrics.items()})
@@ -2381,9 +2630,14 @@ class _RecoveryProbe:
             return probed
 
         def ema_update(*args, **kw):
-            if len(probe.starts) in probe.after:
+            if len(probe.starts) in probe.after and not torch.cuda.is_current_stream_capturing():
                 probe._fail()
             return probe.orig["ema_update"](*args, **kw)
+
+        def replay(captured, *args):
+            if len(probe.starts) in probe.after:
+                probe._fail()
+            return probe.orig["replay"](captured, *args)
 
         def save_checkpoint(path, state, epoch, miou):
             probe.saves.append((os.path.basename(path), epoch, miou))
@@ -2414,6 +2668,7 @@ class _RecoveryProbe:
         tm.save_checkpoint, tm._recover_and_rerun = save_checkpoint, recover
         tm._HostRecovery.refresh, tm._HostRecovery.restore = refresh, restore
         self.ts.ema_update = ema_update
+        self.gs._Replay.__call__ = replay
         return self
 
     def __exit__(self, *exc):
@@ -2422,8 +2677,13 @@ class _RecoveryProbe:
         tm.save_checkpoint, tm._recover_and_rerun = o["save_checkpoint"], o["_recover_and_rerun"]
         tm._HostRecovery.refresh, tm._HostRecovery.restore = o["refresh"], o["restore"]
         self.ts.ema_update = o["ema_update"]
+        self.gs._Replay.__call__ = o["replay"]
 
-    def _fail(self, *hook_args):
+    def _fail_before(self, *hook_args):
+        self.faults_before += 1
+        self._fail()
+
+    def _fail(self):
         try:
             _alloc_too_much(self.torch)
         except self.torch.cuda.OutOfMemoryError as e:
@@ -2488,8 +2748,14 @@ def recovery_phase(torch, ck, smi: str):
               f"{peak:.3f} GiB, saves {probe.saves}", flush=True)
         return result, peak
 
-    def want_launches(label, full_attempts):
-        _check_launches(f"recovery {label}", launches[label], full_attempts)
+    def want_launches(label, probe):
+        """One loss's launches for each attempt whose Python reached the
+        loss: every attempt less the replayed ones and those failed before
+        it."""
+        python = len(probe.starts) - probe.replayed - probe.faults_before
+        _check_launches(f"recovery {label} ({len(probe.starts)} attempts, {probe.replayed} "
+                        f"replayed, {probe.faults_before} failed before the loss)",
+                        launches[label], python)
 
     try:
         # (a), (b) and (a2) under deterministic algorithms: by default the card's
@@ -2502,20 +2768,20 @@ def recovery_phase(torch, ck, smi: str):
             result_a, peak_a = run("a", probe_a)
             if result_a["steps"] != 6 or probe_a.starts != list(range(6)):
                 raise RuntimeError(f"recovery a: {result_a}, attempts {probe_a.starts}")
-            want_launches("a", 6)
+            want_launches("a", probe_a)
             state_a = _host_state(probe_a.state)
             digest_a = state_sha256(probe_a.state)
             refreshes = probe_a.refreshes
             del probe_a
 
-            probe_b = _RecoveryProbe(torch, before={4}, digest_at=4)
+            probe_b = _RecoveryProbe(torch, before={1}, digest_at=1)
             result_b, peak_b = run("b", probe_b)
-            if result_b["steps"] != 6 or probe_b.starts != [0, 1, 2, 3, 3, 4, 5]:
+            if result_b["steps"] != 6 or probe_b.starts != [0, 0, 1, 2, 3, 4, 5]:
                 raise RuntimeError(f"recovery b: {result_b}, attempts {probe_b.starts}")
             if len(probe_b.digests) != 2 or probe_b.digests[0] != probe_b.digests[1]:
                 raise RuntimeError(f"recovery b: the retry was given another state than the "
                                    f"failed attempt: {probe_b.digests}")
-            want_launches("b", 6)
+            want_launches("b", probe_b)
             digest_b = state_sha256(probe_b.state)
             retry_s = probe_b.recoveries
             state_b = None if digest_b == digest_a else _host_state(probe_b.state)
@@ -2546,22 +2812,24 @@ def recovery_phase(torch, ck, smi: str):
         result_c, _ = run("c", probe_c)
         if result_c["steps"] != 5 or probe_c.starts != [0, 1, 2, 3, 2, 3, 4]:
             raise RuntimeError(f"recovery c: {result_c}, attempts {probe_c.starts}")
-        want_launches("c", 7)
+        if probe_c.replayed < 4:
+            raise RuntimeError(f"recovery c: {probe_c.replayed} attempts replayed, want 4 or more")
+        want_launches("c", probe_c)
         restore_s, restore_rerun_s = probe_c.restores, probe_c.recoveries
         del probe_c
 
-        probe_d = _RecoveryProbe(torch, before=range(4, 100))
+        probe_d = _RecoveryProbe(torch, before=range(1, 100))
         err, _ = run("d", probe_d, expect=torch.cuda.OutOfMemoryError)
         chain, e = [], err
         while e is not None:
             chain.append(e)
             e = e.__context__
-        if probe_d.starts != [0, 1, 2, 3, 3, 2] or err is not probe_d.faults[-1] \
+        if probe_d.starts != [0, 0, 0] or err is not probe_d.faults[-1] \
                 or probe_d.faults[0] not in chain:
             raise RuntimeError(f"recovery d: attempts {probe_d.starts}; {len(chain)} errors in "
                                f"the chain, the first fault among them: "
                                f"{probe_d.faults[0] in chain}")
-        want_launches("d", 3)
+        want_launches("d", probe_d)
         print(f"recovery d: propagated {type(err).__name__}: {str(err).splitlines()[0]}",
               flush=True)
         del err, chain, e, probe_d
@@ -2573,7 +2841,7 @@ def recovery_phase(torch, ck, smi: str):
                 or not isinstance(err.__cause__, torch.cuda.OutOfMemoryError)
                 or probe_e.starts != [0, 1, 2, 3]):
             raise RuntimeError(f"recovery e: {err!r}, attempts {probe_e.starts}")
-        want_launches("e", 4)
+        want_launches("e", probe_e)
         print(f"recovery e: raised {str(err)[:160]}", flush=True)
         del err, probe_e
 
@@ -2587,7 +2855,7 @@ def recovery_phase(torch, ck, smi: str):
                 or [r[0] for r in probe_f.refreshes] != [0, 0, 1]):
             raise RuntimeError(f"recovery f: {result_f}, saves {saves}, refreshes "
                                f"{probe_f.refreshes}")
-        want_launches("f", 4)
+        want_launches("f", probe_f)
         del probe_f
 
         print(f"recovery ({smi}): refreshes of a (epoch, s, GiB) "
@@ -2646,6 +2914,8 @@ def main() -> int:
     args = parser.parse_args()
     if args.steps < 3:
         parser.error("--steps must be at least 3")
+    # deterministic cuBLAS for _graph_vs_eager: read when the first handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -2655,6 +2925,7 @@ def main() -> int:
     from css_tpu_torch.ops.kernels import _build
     from css_tpu_torch.ops.kernels import contrastive_kernels as ck
 
+    _watch_step_graphs(torch)
     smi = _smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2701,6 +2972,8 @@ def main() -> int:
         shutil.rmtree(keep, ignore_errors=True)
     city_launches = cityscapes_phase(torch, ck, smi, args.steps)
     phase_done("cityscapes")
+    segformer_launches = segformer_phase(torch, ck, smi, args.steps)
+    phase_done("segformer")
     dist_launches, rank_launches = distributed_phase(torch, ck, smi, args.steps, train_ms)
     phase_done("distributed")
     keep = tempfile.mkdtemp(prefix="chip_smoke_files_")
@@ -2735,9 +3008,11 @@ def main() -> int:
                     rank_launches=[r[name] for r in rank_launches])
         # the expected_pallas steps' launches and the dense weights' timings
         dense = dict(dense_rows[key], launches=dense_launches[name])
-        # the new paths' steps: the imported checkpoint resumed, the real files, OS16
+        # the new paths' steps: the imported checkpoint resumed, the real files, OS16,
+        # SegFormer
         paths = dict(imported_resume_launches=import_launches[name],
                      files_launches=files_launches[name], os16_launches=os16_launches[name],
+                     segformer_launches=segformer_launches[name],
                      # the recovery runs: per attempt that reached the loss
                      recovery_launches={run: n[name] for run, n in recovery_launches.items()})
         rows.append(dict(name=name, route="cuda", source=source, replaces=f"{tpu}:{line_no}",

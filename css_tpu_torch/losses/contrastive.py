@@ -83,7 +83,10 @@ def grouped_random_order(cls_id: torch.Tensor, member: torch.Tensor, tie: torch.
     key = torch.where(member, cls_id, torch.full_like(cls_id, num_classes)).int()
     packed = (key << 24) | tie.int()
     _, order = torch.sort(packed, stable=True)
-    counts = torch.bincount(key.long(), minlength=num_classes + 1)[:num_classes]
+    # a count of fixed length: bincount sizes its output by the largest key,
+    # which the host reads back from the card
+    counts = torch.zeros(num_classes + 1, dtype=torch.int64, device=key.device).index_add_(
+        0, key.long(), torch.ones_like(key, dtype=torch.int64))[:num_classes]
     offsets = torch.cumsum(counts, 0) - counts
     return order, counts, offsets
 

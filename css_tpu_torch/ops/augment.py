@@ -24,8 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from css_tpu_torch.ops.photometric import (exact_div, q8_entry_image, q8_floor,
-                                           random_photometric)
+from css_tpu_torch.ops.photometric import (device_constant, exact_div, q8_entry_image,
+                                           q8_floor, random_photometric)
 
 __all__ = ["apply_geometric", "batch_transform", "normalize_imagenet",
            "to_channel_first", "to_channel_last"]
@@ -44,8 +44,8 @@ def to_channel_last(img_nchw: torch.Tensor) -> torch.Tensor:
 
 def normalize_imagenet(img_cf: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std over the channel axis of a [B, 3, H, W] batch."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=img_cf.dtype, device=img_cf.device)
-    std = torch.tensor(IMAGENET_STD, dtype=img_cf.dtype, device=img_cf.device)
+    mean = device_constant(IMAGENET_MEAN, img_cf.dtype, img_cf.device)
+    std = device_constant(IMAGENET_STD, img_cf.dtype, img_cf.device)
     return (img_cf - mean.reshape(3, 1, 1)) / std.reshape(3, 1, 1)
 
 

@@ -94,7 +94,7 @@ def compact_live_rows_plain(w: torch.Tensor):
     wv = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
     idx[:n] = live.to(torch.int32)
     wv[:n] = w[live]
-    return idx, wv, torch.tensor([n], dtype=torch.int32, device=w.device)
+    return idx, wv, torch.full((1,), n, dtype=torch.int32, device=w.device)
 
 
 def _n_pad(n: int) -> int:

@@ -26,11 +26,27 @@ from __future__ import annotations
 import torch
 
 __all__ = ["color_jitter", "pil_gaussian_blur", "random_photometric", "q8_round",
-           "q8_floor", "q8_entry_image", "exact_div"]
+           "q8_floor", "q8_entry_image", "exact_div", "device_constant"]
 
 _LUMA = (0.299, 0.587, 0.114)
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+_CONSTANTS = {}
+
+
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and kept: on the card a tensor made from host
+    numbers is a copy from pageable memory that drains the stream, and a CUDA
+    graph capture refuses it.  Never written to; callers take views."""
+    key = (values, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 def _per_image(v: torch.Tensor) -> torch.Tensor:
@@ -56,7 +72,7 @@ def q8_floor(x: torch.Tensor) -> torch.Tensor:
 
 
 def _channel_constant(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=like.device).reshape(3, 1, 1)
+    return device_constant(tuple(values), torch.float32, like.device).reshape(3, 1, 1)
 
 
 def q8_entry_image(x: torch.Tensor) -> torch.Tensor:
@@ -72,7 +88,7 @@ def q8_entry_image(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rgb_to_grayscale(img: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor(_LUMA, dtype=img.dtype, device=img.device).reshape(1, 3, 1, 1)
+    w = device_constant(_LUMA, img.dtype, img.device).reshape(1, 3, 1, 1)
     return torch.sum(img * w, dim=1, keepdim=True)
 
 

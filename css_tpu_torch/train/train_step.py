@@ -49,6 +49,15 @@ after the commit leaves the state half-updated: the step marks it
 ``consumed`` and refuses it from then on, as a JAX step refuses donated
 buffers that are already deleted.
 
+On the card, outside ``distributed``, the step runs as replays of CUDA
+graphs (``train/graph_step.py``): after a key's first (eager) call, a call
+captures the step's device work once and each later call copies its inputs
+into the graphs' and replays them, with no host synchronisation and a few
+launches.  The per-step numbers (the learning rate, the EMA decay, the
+contrastive weight) reach the device as 0-dim tensors filled in place
+(``_StepScalars``), so a replay reads the step's own.  Where a capture fails
+(an op that waits for the host), the step stays eager.
+
 ``distributed`` (the JAX step's ``axis_name``): the step runs on every rank
 of the default process group, each on its shard of the batch with its own
 draws, the model built with cross-replica BatchNorm.  Besides the BN
@@ -63,7 +72,8 @@ The step's phases are spans of ``utils/profiling.py``, recorded only under
 ``css.augment`` (the labeled transform and the unlabeled base crop; then the
 unlabeled chain after the teacher), ``css.teacher``, ``css.student``,
 ``css.losses``, ``css.backward`` (with the gradient mean) and ``css.update``
-(learning rate, SGD, EMA, prototypes).
+(SGD, EMA, prototypes); on the graph path ``css.graph`` holds the replays,
+between which the others open and close.
 """
 
 from __future__ import annotations
@@ -83,10 +93,12 @@ from css_tpu_torch.ops.augment import (batch_transform, normalize_imagenet,
 from css_tpu_torch.ops.interpolate import bilinear_resize, nearest_resize
 from css_tpu_torch.ops.mixing import MIX_MODES, PARTNERS, mix_batch
 from css_tpu_torch.ops.onehot import label_onehot, label_onehot_ignore
-from css_tpu_torch.ops.photometric import exact_div
+from css_tpu_torch.ops.photometric import device_constant, exact_div
 from css_tpu_torch.parallel.mesh import all_reduce_sum, mean_gradients, world_size
 from css_tpu_torch.train.draws import StepDraws
-from css_tpu_torch.train.state import TrainState, ema_update
+from css_tpu_torch.train.graph_step import StepGraphs
+from css_tpu_torch.train.schedulers import teacher_ema_decay
+from css_tpu_torch.train.state import TrainState, ema_update, sgd_step
 from css_tpu_torch.utils.profiling import span
 
 __all__ = ["StepConfig", "STRATEGIES", "SUP_LOSSES", "make_train_step", "make_eval_step",
@@ -94,6 +106,7 @@ __all__ = ["StepConfig", "STRATEGIES", "SUP_LOSSES", "make_train_step", "make_ev
 
 STRATEGIES = ("ori", "mix", "cross")
 SUP_LOSSES = ("ce", "ohem")
+LOSS_NAMES = ("total", "sup", "unsup", "contrast")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,7 +217,8 @@ def make_train_step(cfg: StepConfig):
             labels, confs = pseudo_labels(state, l_img,
                                           to_channel_last(normalize_imagenet(u_img01)))
         with span("css.augment"):
-            full_hw = torch.tensor([ch, cw], device=u_img01.device).expand(u_img01.shape[0], 2)
+            full_hw = device_constant((ch, cw), torch.int64,
+                                      u_img01.device).expand(u_img01.shape[0], 2)
             img01, labels, confs = batch_transform(u_img01, labels, confs, full_hw, (ch, cw),
                                                    **draws.t_crop.as_kwargs(), quantize=quantize)
             img01, labels, confs = mix_batch(img01, labels, confs, mode=cfg.mix_mode,
@@ -215,6 +229,7 @@ def make_train_step(cfg: StepConfig):
             return to_channel_last(normalize_imagenet(img01)), labels, confs
 
     rollback = _BufferRollback()
+    scalars = {}
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], draws: StepDraws,
              contrast_weight, use_rep_labels: bool = False
@@ -222,19 +237,38 @@ def make_train_step(cfg: StepConfig):
         if state.consumed:
             raise RuntimeError("train step: the state was consumed by a step that failed at or "
                                "after its update; copy a snapshot back before stepping it")
+        dev = state.prototypes.device
+        s = scalars.get(dev)
+        if s is None:
+            s = scalars[dev] = _StepScalars(dev)
+        replay = None if graphs is None else graphs.prepare(state, batch, draws, s,
+                                                            use_rep_labels)
         with span("css.step"):
-            rollback.save(state)
-            try:
-                return attempt(state, batch, draws, contrast_weight, use_rep_labels)
-            except BaseException:
-                # before the commit: the buffers go back (a device that refuses
-                # the copy, after a sticky fault, leaves the state consumed); the
-                # fault itself propagates
-                if not state.consumed and not rollback.restore():
-                    state.consumed = True
-                raise
+            lr = s.write(state, cfg.ema_alpha, contrast_weight)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            if replay is not None:
+                # the commit is inside the graphs: a fault in a replay is after it
+                state.consumed = True
+                losses = replay(batch, draws)
+            else:
+                rollback.save(state)
+                try:
+                    losses = device_step(state, batch, draws, s, use_rep_labels)
+                except BaseException:
+                    # before the commit: the buffers go back (a device that refuses
+                    # the copy, after a sticky fault, leaves the state consumed); the
+                    # fault itself propagates
+                    if not state.consumed and not rollback.restore():
+                        state.consumed = True
+                    raise
+            state.step += 1
+            state.consumed = False
+        return state, dict(zip(LOSS_NAMES, losses.unbind()))
 
-    def attempt(state, batch, draws, contrast_weight, use_rep_labels):
+    def device_step(state, batch, draws, s, use_rep_labels) -> torch.Tensor:
+        """The step's device work, from the batch to the updated state: what a
+        graph captures.  Returns the four losses stacked [4]."""
         model = state.model
         with torch.no_grad():
             with span("css.augment"):
@@ -307,7 +341,7 @@ def make_train_step(cfg: StepConfig):
                     distributed=cfg.distributed, negative_mode=cfg.negative_mode)
             else:
                 contrast, new_protos = sup.new_zeros(()), state.prototypes
-            total = sup + unsup + contrast * contrast_weight
+            total = sup + unsup + contrast * s.weight
 
         with span("css.backward"):
             state.optimizer.zero_grad(set_to_none=True)
@@ -315,22 +349,46 @@ def make_train_step(cfg: StepConfig):
             if cfg.distributed:
                 mean_gradients(model.parameters())
         with span("css.update"):
-            for group in state.optimizer.param_groups:
-                group["lr"] = state.lr_schedule(state.step)
             # the commit: from here on a fault leaves a half-updated state
             state.consumed = True
-            state.optimizer.step()
-            ema_update(state.teacher, model, state.step, cfg.ema_alpha)
-            state.prototypes = new_protos.detach()
-            state.step += 1
-        losses = (total, sup, unsup, contrast)
+            sgd_step(state.optimizer, s.lr)
+            ema_update(state.teacher, model, s.decay, s.rest)
+            if new_protos is not state.prototypes:
+                state.prototypes.copy_(new_protos.detach())
+        losses = torch.stack([total, sup, unsup, contrast]).detach()
         if cfg.distributed:
-            losses = (all_reduce_sum(torch.stack(losses).detach()) / world_size()).unbind()
-        metrics = {k: v.detach() for k, v in zip(("total", "sup", "unsup", "contrast"), losses)}
-        state.consumed = False
-        return state, metrics
+            losses = all_reduce_sum(losses) / world_size()
+        return losses
 
+    graphs = None if cfg.distributed else StepGraphs(device_step)
+    step.graphs = graphs
     return step
+
+
+class _StepScalars:
+    """The step's per-step numbers as 0-dim f32 tensors on the state's device:
+    the learning rate, the teacher's EMA decay, 1 - decay and the
+    contrastive weight.  ``write`` fills them in place (a fill kernel each,
+    the value in its arguments: no host buffer to outlive), in stream order
+    before the step that reads them."""
+
+    def __init__(self, device: torch.device):
+        self.lr, self.decay, self.rest, self.weight = torch.zeros(
+            4, dtype=torch.float32, device=device).unbind()
+
+    def write(self, state: TrainState, ema_alpha: float, contrast_weight) -> float:
+        """Writes the numbers of ``state``'s next step; returns its learning
+        rate."""
+        lr = state.lr_schedule(state.step)
+        decay = teacher_ema_decay(state.step, ema_alpha)
+        self.lr.fill_(lr)
+        self.decay.fill_(decay)
+        self.rest.fill_(1.0 - decay)      # the f32 rounding of SGD's alpha=1 - decay
+        if isinstance(contrast_weight, torch.Tensor):
+            self.weight.copy_(contrast_weight)
+        else:
+            self.weight.fill_(float(contrast_weight))
+        return lr
 
 
 class _BufferRollback:

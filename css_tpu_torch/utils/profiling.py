@@ -22,6 +22,12 @@ one shared no-op context and does nothing else.  A recorded span keeps
   and the hook are restored when the last open span closes.
 
 ``snapshot()`` sums the spans closed so far by name; ``reset()`` drops them.
+
+``cut_at_spans(cut)`` serves a CUDA graph capture (``train/graph_step.py``):
+inside it, on its thread, ``span`` records nothing and calls ``cut(edge)``
+at each edge instead, ``("enter", name, device)`` and ``("exit",)``, so that
+the capture can end one graph there and begin the next; a replay then opens
+and closes the spans between the graphs' launches.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["maybe_profile", "StepTimer", "span", "tracing", "snapshot", "reset",
-           "per_step_line"]
+           "per_step_line", "cut_at_spans"]
 
 _SYNC_WARNING = "called a synchronizing CUDA operation"   # c10's text, under "warn"
 
@@ -186,15 +192,51 @@ class _Recorder:
 
 _RECORDER = _Recorder()
 _OFF = contextlib.nullcontext()
+_CUTS = threading.local()       # .cut: the capture's callable while one runs on the thread
+
+
+class _Cut:
+    """A span met while a graph capture runs: its edges call the capture's
+    ``cut``; an edge that an exception crosses calls nothing."""
+
+    __slots__ = ("name", "device", "cut")
+
+    def __init__(self, name: str, device: bool, cut):
+        self.name, self.device, self.cut = name, device, cut
+
+    def __enter__(self):
+        self.cut(("enter", self.name, self.device))
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            self.cut(("exit",))
+        return False
 
 
 def span(name: str, device: bool = True):
     """A context that records the phase ``name`` while tracing is on (see the
     module's docstring); ``device=False`` keeps no CUDA events (a host-only
-    phase).  Off, the one shared no-op context."""
+    phase).  Off, the one shared no-op context; inside ``cut_at_spans``, a
+    context that cuts the capture at its edges."""
+    cut = getattr(_CUTS, "cut", None)
+    if cut is not None:
+        return _Cut(name, device, cut)
     if not (_RECORDER.forced or _autograd_profiler._is_profiler_enabled):
         return _OFF
     return _Span(name, device)
+
+
+@contextlib.contextmanager
+def cut_at_spans(cut):
+    """Inside, on this thread, each span's edges call ``cut(edge)`` in place
+    of recording (see the module's docstring)."""
+    outer = getattr(_CUTS, "cut", None)
+    _CUTS.cut = cut
+    try:
+        yield
+    finally:
+        _CUTS.cut = outer
 
 
 @contextlib.contextmanager

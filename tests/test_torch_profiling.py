@@ -61,11 +61,14 @@ class TinyRun:
                         for s in "lu"]
         self.iters = [InfiniteLoader(x) for x in self.loaders]
 
-    def step(self):
+    def next_batch(self):
         bl, bu = (next(it) for it in self.iters)
         batch = {"l_image": bl["image"], "l_label": bl["label"], "l_valid_hw": bl["valid_hw"],
                  "u_image": bu["image"], "u_valid_hw": bu["valid_hw"]}
-        batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+
+    def step(self, batch=None):
+        batch = self.next_batch() if batch is None else batch
         g = torch.Generator(device=self.device).manual_seed(self.state.step)
         draws = sample_step_draws(g, self.cfg, B, B, self.rows)
         self.state, metrics = self.step_fn(self.state, batch, draws, 1.0)
@@ -321,11 +324,17 @@ def test_card_phases_fill_the_step(cuda, clean):
     run = TinyRun(cuda)
     try:
         run.step()
+        run.step()              # the step's CUDA graph is captured here
+        batches = [run.next_batch() for _ in range(3)]   # (a copy from pageable memory waits)
         torch.cuda.synchronize()
         reset()
+        # the card kept busy while the host issues the steps, as in a real step
+        # (the host ahead of the card), so that the spans time device work, not
+        # the host's time between the tiny trunk's replays
+        torch.cuda._sleep(200_000_000)
         with tracing():
-            for _ in range(3):
-                run.step()
+            for batch in batches:
+                run.step(batch)
         spans = snapshot()
     finally:
         run.close()
